@@ -1,0 +1,197 @@
+"""JAX parameter tree -> the port's state_dict.
+
+`state_dict_from_jax(params)` takes the JAX package's variables for the
+synthesis path's modules ({module: {"params": tree}} with numpy-convertible
+leaves) and returns `{"<module>.<reference torch name>": tensor}`, the
+layout of `build_models(cfg).state_dict()`. It is the exact inverse of
+`styletts2_tpu/convert.py:convert_styletts2_checkpoint` on those modules:
+  Dense (in, out) -> Linear (out, in); Conv (K, in, out) -> (out, in, K);
+  weight-norm v likewise, g -> (C, 1, 1); ConvTranspose v stays
+  (in, out/groups, K); snake alpha (1, 1, C) -> (1, C, 1); LayerNorm
+  scale -> weight; the LSTM's single bias b goes to bias_ih and bias_hh is 0.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+SLICE_MODULES = ("text_encoder", "bert", "bert_encoder", "predictor", "decoder", "diffusion")
+
+
+def _np(x) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(x, dtype=np.float32))
+
+
+def _lin(p, sd, name):
+    sd[f"{name}.weight"] = _np(p["kernel"]).T
+    if "bias" in p:
+        sd[f"{name}.bias"] = _np(p["bias"])
+
+
+def _ln(p, sd, name):
+    sd[f"{name}.weight"] = _np(p["scale"])
+    sd[f"{name}.bias"] = _np(p["bias"])
+
+
+def _conv1d(p, sd, name):
+    sd[f"{name}.weight"] = _np(p["kernel"]).transpose(2, 1, 0)
+    if "bias" in p:
+        sd[f"{name}.bias"] = _np(p["bias"])
+
+
+def _wnconv1d(p, sd, name):
+    sd[f"{name}.weight_v"] = _np(p["v"]).transpose(2, 1, 0)
+    sd[f"{name}.weight_g"] = _np(p["g"]).reshape(-1, 1, 1)
+    if "bias" in p:
+        sd[f"{name}.bias"] = _np(p["bias"])
+
+
+def _wnconvtr1d(p, sd, name):
+    sd[f"{name}.weight_v"] = _np(p["v"])
+    sd[f"{name}.weight_g"] = _np(p["g"]).reshape(-1, 1, 1)
+    if "bias" in p:
+        sd[f"{name}.bias"] = _np(p["bias"])
+
+
+def _bilstm(p, sd, name):
+    for d, suffix in (("fwd", ""), ("bwd", "_reverse")):
+        q = p[d]
+        sd[f"{name}.weight_ih_l0{suffix}"] = _np(q["W_ih"]).T
+        sd[f"{name}.weight_hh_l0{suffix}"] = _np(q["W_hh"]).T
+        sd[f"{name}.bias_ih_l0{suffix}"] = _np(q["b"])
+        sd[f"{name}.bias_hh_l0{suffix}"] = np.zeros_like(_np(q["b"]))
+
+
+def _count(p, prefix):
+    return sum(1 for k in p if k.startswith(prefix))
+
+
+def _text_encoder(p, sd):
+    sd["embedding.weight"] = _np(p["embedding"]["embedding"])
+    for i in range(_count(p, "cnn_")):
+        _wnconv1d(p[f"cnn_{i}"], sd, f"cnn.{i}.0")
+        sd[f"cnn.{i}.1.gamma"] = _np(p[f"norm_{i}"]["gamma"])
+        sd[f"cnn.{i}.1.beta"] = _np(p[f"norm_{i}"]["beta"])
+    _bilstm(p["lstm"], sd, "lstm")
+
+
+def _bert(p, sd):
+    sd["embeddings.word_embeddings.weight"] = _np(p["word_embeddings"]["embedding"])
+    sd["embeddings.position_embeddings.weight"] = _np(p["position_embeddings"])
+    sd["embeddings.token_type_embeddings.weight"] = _np(p["token_type_embeddings"])
+    _ln(p["emb_ln"], sd, "embeddings.LayerNorm")
+    _lin(p["emb_proj"], sd, "encoder.embedding_hidden_mapping_in")
+    b = "encoder.albert_layer_groups.0.albert_layers.0"
+    layer = p["layer"]
+    for mine, theirs in (("q", "attention.query"), ("k", "attention.key"),
+                         ("v", "attention.value"), ("attn_out", "attention.dense"),
+                         ("ffn", "ffn"), ("ffn_out", "ffn_output")):
+        _lin(layer[mine], sd, f"{b}.{theirs}")
+    _ln(layer["attn_ln"], sd, f"{b}.attention.LayerNorm")
+    _ln(layer["ffn_ln"], sd, f"{b}.full_layer_layer_norm")
+
+
+def _bert_encoder(p, sd):
+    sd["weight"] = _np(p["proj"]["kernel"]).T
+    sd["bias"] = _np(p["proj"]["bias"])
+
+
+def _adain_res_blk1d(p, sd, base):
+    _lin(p["norm1"]["fc"], sd, f"{base}.norm1.fc")
+    _lin(p["norm2"]["fc"], sd, f"{base}.norm2.fc")
+    _wnconv1d(p["conv1"], sd, f"{base}.conv1")
+    _wnconv1d(p["conv2"], sd, f"{base}.conv2")
+    if "pool" in p:
+        _wnconvtr1d(p["pool"], sd, f"{base}.pool")
+    if "conv1x1" in p:
+        _wnconv1d(p["conv1x1"], sd, f"{base}.conv1x1")
+
+
+def _predictor(p, sd):
+    te = p["text_encoder"]
+    for i in range(_count(te, "lstm_")):
+        _bilstm(te[f"lstm_{i}"], sd, f"text_encoder.lstms.{2 * i}")
+        _lin(te[f"ada_{i}"]["fc"], sd, f"text_encoder.lstms.{2 * i + 1}.fc")
+    _bilstm(p["lstm"], sd, "lstm")
+    _lin(p["duration_proj"], sd, "duration_proj.linear_layer")
+    _bilstm(p["shared"], sd, "shared")
+    for branch, mine in (("F0", "F0_blocks"), ("N", "N_blocks")):
+        for j in range(_count(p, f"{mine}_")):
+            _adain_res_blk1d(p[f"{mine}_{j}"], sd, f"{branch}.{j}")
+    _conv1d(p["F0_proj"], sd, "F0_proj")
+    _conv1d(p["N_proj"], sd, "N_proj")
+
+
+def _adain_res_block1(p, sd, base):
+    for j in range(_count(p, "conv1_")):
+        _wnconv1d(p[f"conv1_{j}"], sd, f"{base}.convs1.{j}")
+        _wnconv1d(p[f"conv2_{j}"], sd, f"{base}.convs2.{j}")
+        _lin(p[f"adain1_{j}"]["fc"], sd, f"{base}.adain1.{j}.fc")
+        _lin(p[f"adain2_{j}"]["fc"], sd, f"{base}.adain2.{j}.fc")
+        sd[f"{base}.alpha1.{j}"] = _np(p[f"alpha1_{j}"]).transpose(0, 2, 1)
+        sd[f"{base}.alpha2.{j}"] = _np(p[f"alpha2_{j}"]).transpose(0, 2, 1)
+
+
+def _decoder(p, sd):
+    _adain_res_blk1d(p["encode"], sd, "encode")
+    for i in range(_count(p, "decode_")):
+        _adain_res_blk1d(p[f"decode_{i}"], sd, f"decode.{i}")
+    _wnconv1d(p["F0_conv"], sd, "F0_conv")
+    _wnconv1d(p["N_conv"], sd, "N_conv")
+    _wnconv1d(p["asr_res"], sd, "asr_res.0")
+    g = p["generator"]
+    _lin(g["m_source"]["l_linear"], sd, "generator.m_source.l_linear")
+    num_kernels = len({k.split("_")[2] for k in g if k.startswith("resblocks_")})
+    for i in range(_count(g, "ups_")):
+        _wnconvtr1d(g[f"ups_{i}"], sd, f"generator.ups.{i}")
+        _conv1d(g[f"noise_convs_{i}"], sd, f"generator.noise_convs.{i}")
+        _adain_res_block1(g[f"noise_res_{i}"], sd, f"generator.noise_res.{i}")
+        for j in range(num_kernels):
+            _adain_res_block1(g[f"resblocks_{i}_{j}"], sd,
+                              f"generator.resblocks.{i * num_kernels + j}")
+    _wnconv1d(g["conv_post"], sd, "generator.conv_post")
+
+
+def _diffusion(p, sd):
+    sd["fixed_embedding.embedding.weight"] = _np(p["fixed_embedding"])
+    sd["to_time.0.0.weights"] = _np(p["to_time"]["weights"])
+    _lin(p["to_time"]["proj"], sd, "to_time.0.1")
+    _lin(p["map1"], sd, "to_mapping.0")
+    _lin(p["map2"], sd, "to_mapping.2")
+    for i in range(_count(p, "block_")):
+        b = f"blocks.{i}"
+        att = p[f"block_{i}"]["attention"]
+        _lin(att["to_q"], sd, f"{b}.attention.to_q")
+        _lin(att["to_kv"], sd, f"{b}.attention.to_kv")
+        _lin(att["to_out"], sd, f"{b}.attention.attention.to_out")
+        _ln(att["norm"], sd, f"{b}.attention.norm")
+        _ln(att["norm_context"], sd, f"{b}.attention.norm_context")
+        ff = p[f"block_{i}"]["feed_forward"]
+        _lin(ff["in"], sd, f"{b}.feed_forward.0")
+        _lin(ff["out"], sd, f"{b}.feed_forward.2")
+    sd["to_out.1.weight"] = _np(p["to_out"]["kernel"]).T[:, :, None]
+    sd["to_out.1.bias"] = _np(p["to_out"]["bias"])
+
+
+_MODULES = {
+    "text_encoder": _text_encoder,
+    "bert": _bert,
+    "bert_encoder": _bert_encoder,
+    "predictor": _predictor,
+    "decoder": _decoder,
+    "diffusion": _diffusion,
+}
+
+
+def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX variables of the slice's modules -> the port's full state_dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for key in SLICE_MODULES:
+        sd: Dict[str, np.ndarray] = {}
+        _MODULES[key](params[key]["params"], sd)
+        for name, v in sd.items():
+            out[f"{key}.{name}"] = torch.from_numpy(np.ascontiguousarray(v))
+    return out

@@ -1,0 +1,122 @@
+"""Assembly of the synthesis path's modules, with seeded random weights.
+
+`build_models(cfg, generator)` returns an `nn.ModuleDict` keyed like the
+reference checkpoint's `net` dict: text_encoder, bert, bert_encoder,
+predictor, decoder, diffusion. Its `state_dict()` keys are therefore
+`<module>.<reference torch name>`, the layout `convert.state_dict_from_jax`
+produces.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from styletts2_tpu_torch.config import Config
+from styletts2_tpu_torch.models.decoder_istft import Decoder
+from styletts2_tpu_torch.models.diffusion.denoiser import LearnedPositionalEmbedding, Transformer1d
+from styletts2_tpu_torch.models.layers import WNConv1d, WNConvTranspose1d
+from styletts2_tpu_torch.models.plbert import PLBERT, AlbertEmbeddings
+from styletts2_tpu_torch.models.predictor import ProsodyPredictor
+from styletts2_tpu_torch.models.text_encoder import TextEncoder
+
+
+class BertEncoder(nn.Linear):
+    """PL-BERT hidden -> hidden_dim projection."""
+
+
+def build_models(cfg: Config, generator: Optional[torch.Generator] = None) -> nn.ModuleDict:
+    mp = cfg.model_params
+    if mp.multispeaker or mp.decoder.type != "istftnet":
+        raise NotImplementedError(
+            "the port covers single-speaker synthesis with the iSTFTNet decoder"
+        )
+    dec = mp.decoder
+    tr = mp.diffusion.transformer
+    pb = cfg.plbert_params
+    models = nn.ModuleDict({
+        "text_encoder": TextEncoder(mp.hidden_dim, 5, mp.n_layer, mp.n_token),
+        "bert": PLBERT(pb),
+        "bert_encoder": BertEncoder(pb.hidden_size, mp.hidden_dim),
+        "predictor": ProsodyPredictor(mp.style_dim, mp.hidden_dim, mp.n_layer, mp.max_dur),
+        "decoder": Decoder(
+            dim_in=mp.hidden_dim, style_dim=mp.style_dim,
+            resblock_kernel_sizes=tuple(dec.resblock_kernel_sizes),
+            upsample_rates=tuple(dec.upsample_rates),
+            upsample_initial_channel=dec.upsample_initial_channel,
+            resblock_dilation_sizes=tuple(map(tuple, dec.resblock_dilation_sizes)),
+            upsample_kernel_sizes=tuple(dec.upsample_kernel_sizes),
+            gen_istft_n_fft=dec.gen_istft_n_fft, gen_istft_hop_size=dec.gen_istft_hop_size,
+        ),
+        "diffusion": Transformer1d(
+            channels=mp.style_dim * 2, context_embedding_features=pb.hidden_size,
+            num_layers=tr.num_layers, num_heads=tr.num_heads,
+            head_features=tr.head_features, multiplier=tr.multiplier,
+            embedding_max_length=pb.max_position_embeddings,
+        ),
+    })
+    _init_weights(models, generator)
+    return models
+
+
+@torch.no_grad()
+def _init_weights(root: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """Random weights drawn from `generator` with the JAX package's init
+    distributions: lecun-normal dense kernels and zero biases; U(+-1/sqrt(fan_in))
+    convs and LSTMs; weight-norm g = 1; embeddings N(0, 1/sqrt(features)),
+    except PL-BERT's positional tables N(0, 0.02) and the denoiser's fixed
+    embedding and Fourier weights N(0, 1). Norm scales and snake alphas keep
+    their constructor values (ones / zeros)."""
+    g = generator
+
+    def uniform_(t, bound):
+        t.copy_(torch.rand(t.shape, generator=g) * (2 * bound) - bound)
+
+    def normal_(t, std):
+        t.copy_(torch.randn(t.shape, generator=g) * std)
+
+    def lecun_(mod):
+        std = 1.0 / math.sqrt(mod.weight[0].numel()) / 0.87962566103423978
+        w = torch.empty(mod.weight.shape)
+        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
+        mod.weight.copy_(w)
+        if mod.bias is not None:
+            mod.bias.zero_()
+
+    for mod in root.modules():
+        if isinstance(mod, nn.Linear):
+            lecun_(mod)
+        elif isinstance(mod, (WNConv1d, WNConvTranspose1d, nn.Conv1d)):
+            w = mod.weight_v if isinstance(mod, (WNConv1d, WNConvTranspose1d)) else mod.weight
+            if isinstance(mod, WNConvTranspose1d):
+                fan_in = w.shape[0] * w.shape[2] // mod.groups
+            else:
+                fan_in = w.shape[1] * w.shape[2]
+            bound = 1.0 / math.sqrt(fan_in)
+            uniform_(w, bound)
+            if isinstance(mod, (WNConv1d, WNConvTranspose1d)):
+                mod.weight_g.fill_(1.0)
+            if mod.bias is not None:
+                uniform_(mod.bias, bound)
+        elif isinstance(mod, nn.LSTM):
+            bound = 1.0 / math.sqrt(mod.hidden_size)
+            for name, p in mod.named_parameters():
+                if name.startswith("bias_hh"):
+                    p.zero_()  # the JAX LSTM has one bias, b_ih + b_hh
+                else:
+                    uniform_(p, bound)
+        elif isinstance(mod, nn.Embedding):
+            normal_(mod.weight, 1.0 / math.sqrt(mod.embedding_dim))
+        elif isinstance(mod, LearnedPositionalEmbedding):
+            normal_(mod.weights, 1.0)
+    for mod in root.modules():
+        if isinstance(mod, AlbertEmbeddings):
+            normal_(mod.position_embeddings.weight, 0.02)
+            normal_(mod.token_type_embeddings.weight, 0.02)
+        elif isinstance(mod, Transformer1d):
+            normal_(mod.fixed_embedding.embedding.weight, 1.0)
+            lecun_(mod.to_out[1])  # a dense layer in the JAX package
+

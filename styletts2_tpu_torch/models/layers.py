@@ -1,0 +1,150 @@
+"""Core building blocks, NCW layout (batch, channels, time).
+
+Counterparts of `styletts2_tpu/models/layers.py`. Parameter names follow the
+reference torch checkpoints that `styletts2_tpu/convert.py` reads (weight_v,
+weight_g, bias; LSTM weight_ih_l0...), so `convert.state_dict_from_jax` is a
+rename-and-transpose.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
+
+LRELU_SLOPE_02 = 0.2
+
+
+def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE_02) -> torch.Tensor:
+    return F.leaky_relu(x, slope)
+
+
+def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """x + sin^2(alpha x) / alpha."""
+    s = torch.sin(alpha * x)
+    return x + (s * s) / alpha
+
+
+def _weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """g * v / ||v|| with the norm over every axis but the first, and 1e-12
+    inside the square root as in the JAX package (not torch's weight_norm)."""
+    return v / torch.sqrt(torch.sum(v * v, dim=(1, 2), keepdim=True) + 1e-12) * g
+
+
+class WNConv1d(nn.Module):
+    """Weight-normalised Conv1d: weight_v (out, in/groups, K), weight_g (out, 1, 1)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0,
+                 dilation=1, groups=1, bias=True):
+        super().__init__()
+        self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
+        self.weight_v = nn.Parameter(torch.empty(out_ch, in_ch // groups, kernel_size))
+        self.weight_g = nn.Parameter(torch.ones(out_ch, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+
+    def forward(self, x):
+        w = _weight_norm(self.weight_v, self.weight_g)
+        return F.conv1d(x, w, self.bias, self.stride, self.padding, self.dilation, self.groups)
+
+
+class WNConvTranspose1d(nn.Module):
+    """Weight-normalised ConvTranspose1d: weight_v in torch's (in, out/groups,
+    K) layout, normalised per input channel; g=1 or depthwise groups=C."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=2, padding=1,
+                 output_padding=1, groups=1, bias=True):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.output_padding, self.groups = output_padding, groups
+        self.weight_v = nn.Parameter(torch.empty(in_ch, out_ch // groups, kernel_size))
+        self.weight_g = nn.Parameter(torch.ones(in_ch, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+
+    def forward(self, x):
+        w = _weight_norm(self.weight_v, self.weight_g)
+        return F.conv_transpose1d(
+            x, w, self.bias, self.stride, self.padding, self.output_padding, self.groups
+        )
+
+
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Normalise each (b, c) row of (B, C, T) over time, statistics in f32."""
+    xs = x.float()
+    mean = xs.mean(dim=-1, keepdim=True)
+    var = xs.var(dim=-1, unbiased=False, keepdim=True)
+    return ((xs - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+class ChannelLayerNorm(nn.Module):
+    """LayerNorm over the channels of (B, C, T) with learned gamma/beta."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.gamma = nn.Parameter(torch.ones(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        y = F.layer_norm(x.transpose(1, 2), (x.shape[1],), self.gamma, self.beta, self.eps)
+        return y.transpose(1, 2)
+
+
+class StyleAffine(nn.Module):
+    """Style -> (gamma, beta), each (B, C)."""
+
+    def __init__(self, style_dim: int, num_features: int):
+        super().__init__()
+        self.fc = nn.Linear(style_dim, num_features * 2)
+
+    def forward(self, s):
+        return self.fc(s).chunk(2, dim=-1)
+
+
+class AdaIN1d(StyleAffine):
+    """Style-conditional instance norm of (B, C, T)."""
+
+    def forward(self, x, s):
+        gamma, beta = super().forward(s)
+        return (1.0 + gamma[:, :, None]) * instance_norm(x) + beta[:, :, None]
+
+
+class AdaLayerNorm(StyleAffine):
+    """Style-conditional LayerNorm over the channels of (B, T, C)."""
+
+    def __init__(self, style_dim: int, channels: int, eps: float = 1e-5):
+        super().__init__(style_dim, channels)
+        self.eps = eps
+
+    def forward(self, x, s):
+        gamma, beta = super().forward(s)
+        y = F.layer_norm(x, (x.shape[-1],), eps=self.eps)
+        return (1.0 + gamma[:, None, :]) * y + beta[:, None, :]
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, T) -> (B, C, 2T), nearest."""
+    return torch.repeat_interleave(x, 2, dim=-1)
+
+
+class BiLSTM(nn.LSTM):
+    """Bidirectional one-layer LSTM on (B, T, C) -> (B, T, 2H).
+
+    With `lengths`, padded steps output 0 and the reverse direction starts at
+    each row's last valid step, as the JAX package's masked scan does; that
+    is `pack_padded_sequence` semantics. `lengths` lives on the host."""
+
+    def __init__(self, input_size: int, hidden: int):
+        super().__init__(input_size, hidden, num_layers=1, batch_first=True,
+                         bidirectional=True)
+
+    def forward(self, x, lengths: Optional[torch.Tensor] = None):
+        T = x.shape[1]
+        if lengths is None or bool((lengths >= T).all()):
+            return super().forward(x)[0]
+        packed = pack_padded_sequence(x, lengths.cpu().to(torch.int64), batch_first=True,
+                                      enforce_sorted=False)
+        out, _ = super().forward(packed)
+        return pad_packed_sequence(out, batch_first=True, total_length=T)[0]

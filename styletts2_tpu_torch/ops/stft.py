@@ -1,0 +1,79 @@
+"""STFT and inverse STFT for the iSTFTNet head, torch.stft/istft semantics.
+
+Counterparts of `styletts2_tpu/ops/stft.py`: a centred, reflect-padded
+STFT with a Hann window zero-padded to n_fft, and an overlap-add inverse
+normalised by the summed squared window. The FFTs are `torch.fft`.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+@functools.lru_cache(maxsize=None)
+def hann_window(win_length: int, periodic: bool = True) -> np.ndarray:
+    """Hann window; periodic=True matches torch.hann_window."""
+    n = win_length + 1 if periodic else win_length
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / max(n - 1, 1))
+    return w[:win_length].astype(np.float32)
+
+
+def _padded_window(n_fft: int, win_length: int, device) -> torch.Tensor:
+    w = np.zeros(n_fft, dtype=np.float32)
+    lpad = (n_fft - win_length) // 2
+    w[lpad: lpad + win_length] = hann_window(win_length)
+    return torch.from_numpy(w).to(device)
+
+
+def stft(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int) -> torch.Tensor:
+    """Complex STFT of (B, T) -> (B, n_fft//2+1, F), center=True, reflect pad."""
+    pad = n_fft // 2
+    x = F.pad(x[:, None, :], (pad, pad), mode="reflect")[:, 0, :]
+    frames = x.unfold(-1, n_fft, hop_length)  # (B, F, n_fft)
+    frames = frames * _padded_window(n_fft, win_length, x.device)
+    return torch.fft.rfft(frames, n=n_fft, dim=-1).transpose(-1, -2)
+
+
+def stft_magphase(
+    x: torch.Tensor, n_fft: int, hop_length: int, win_length: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(|STFT|, angle), each (B, n_fft//2+1, F)."""
+    s = stft(x, n_fft, hop_length, win_length)
+    return s.abs(), s.angle()
+
+
+def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """Overlap-add (B, F, n_fft) -> (B, n_fft + hop*(F-1))."""
+    B, nF, n_fft = frames.shape
+    return F.fold(
+        frames.transpose(1, 2), output_size=(1, n_fft + hop * (nF - 1)),
+        kernel_size=(1, n_fft), stride=(1, hop),
+    )[:, 0, 0, :]
+
+
+@functools.lru_cache(maxsize=None)
+def _ola_window_sumsq(n_frames: int, n_fft: int, hop: int, win_length: int) -> np.ndarray:
+    """Overlap-added squared window, with ~0 entries set to 1 (f32)."""
+    w2 = _padded_window(n_fft, win_length, "cpu").double() ** 2
+    acc = overlap_add(w2.expand(1, n_frames, n_fft), hop)[0].float().numpy()
+    return np.where(acc > 1e-11, acc, 1.0).astype(np.float32)
+
+
+def istft(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int, hop_length: int,
+          win_length: int) -> torch.Tensor:
+    """Inverse STFT from (|S|, angle), each (B, n_fft//2+1, F) ->
+    wave (B, hop*(F-1)), center=True."""
+    spec = torch.polar(magnitude, phase)
+    frames = torch.fft.irfft(spec.transpose(-1, -2), n=n_fft, dim=-1)
+    frames = frames * _padded_window(n_fft, win_length, frames.device)
+    nF = frames.shape[-2]
+    y = overlap_add(frames, hop_length)
+    wss = torch.from_numpy(_ola_window_sumsq(nF, n_fft, hop_length, win_length))
+    y = y / wss.to(y.device)
+    half = n_fft // 2
+    return y[..., half: y.shape[-1] - half]

@@ -1,0 +1,70 @@
+"""The port's CUDA kernel against its plain PyTorch version, on the card.
+
+Marked `gpu`: it needs an NVIDIA GPU and nvcc, and skips elsewhere. It
+imports neither JAX nor the JAX package, so it runs on a machine with
+only PyTorch:
+    python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
+
+Tolerance: atol = rtol = 1e-4 in f32 (the kernel sums the statistics in
+another order than torch), 2e-2 in bf16 (one bf16 rounding of an O(1)
+output, as tests/test_pallas.py).
+"""
+
+import pytest
+import torch
+
+from styletts2_tpu_torch.ops.adain_snake import adain_snake, adain_snake_ref
+
+pytestmark = pytest.mark.gpu
+
+# the main path's stage-0 and stage-1 shapes at an 8 s utterance, the JAX
+# tests' cases, odd T below 64 and T = 1
+CASES = [
+    ((1, 256, 8000), torch.float32),
+    ((1, 128, 48001), torch.float32),
+    ((2, 256, 24), torch.float32),
+    ((3, 256, 128), torch.float32),
+    ((2, 256, 160), torch.bfloat16),
+    ((2, 100, 37), torch.float32),
+    ((2, 3, 1), torch.float32),
+]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape,dtype", CASES)
+def test_kernel_matches_plain(cuda, shape, dtype):
+    B, C, T = shape
+    g = torch.Generator(cuda).manual_seed(0)
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    gamma = torch.randn((B, C), generator=g, device=cuda) * 0.1
+    beta = torch.randn((B, C), generator=g, device=cuda) * 0.1
+    alpha = torch.rand((C,), generator=g, device=cuda) + 0.5
+    with torch.inference_mode():
+        before = adain_snake.launches
+        got = adain_snake(x, gamma, beta, alpha)
+        torch.cuda.synchronize()
+        assert adain_snake.launches == before + 1
+        want = adain_snake_ref(x, gamma, beta, alpha)
+    assert got.dtype == dtype and got.shape == x.shape
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_kernel_rejects_what_it_cannot_take(cuda):
+    x = torch.randn((1, 4, 16), device=cuda)
+    p = torch.zeros((1, 4), device=cuda)
+    a = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError):
+        adain_snake(x.transpose(1, 2), p, p, a)  # not contiguous
+    with pytest.raises(TypeError):
+        adain_snake(x.half(), p, p, a)
+    with pytest.raises(ValueError):
+        adain_snake(x, p, p, torch.ones(3, device=cuda))

@@ -1,0 +1,150 @@
+"""The port's synthesis path as a whole: its config defaults, the weight
+conversion round trip, `Synthesizer.inference` against the JAX Synthesizer,
+the port's import boundary and chip_smoke.py's refusal without a card.
+
+Tolerances of the end-to-end comparison: the integer durations must be
+equal; the style s_pred within 1e-4 of its peak (text encoders and 5
+diffusion steps in f32); the waveform within 1e-3 of its peak, the bound the
+reference-parity harness held every stage to (see test_torch_decoder.py).
+Random draws and the chaotic source phase are zeroed on both sides.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+
+from styletts2_tpu.convert import convert_styletts2_checkpoint
+from styletts2_tpu_torch.convert import SLICE_MODULES, state_dict_from_jax
+from torch_parity import (jax_cfg, jax_models_and_params, port_cfg, rel_err,
+                          stable_har_phase, zero_noise)
+
+REPO = Path(__file__).resolve().parent.parent
+TEXT = "ðɪs ɪz ɐ tˈɛst ʌv ðə pˈɔːɹt."
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jcfg = jax_cfg()
+    _, params = jax_models_and_params(jcfg, seed=8)
+    return jcfg, params
+
+
+def test_config_defaults_are_config_yml():
+    """Config() is configs/config.yml, and agrees with the JAX package's
+    Config on every field the port reads."""
+    import dataclasses
+
+    from styletts2_tpu.config import Config as JaxConfig
+    from styletts2_tpu_torch.config import Config, load_config
+
+    assert load_config(str(REPO / "configs" / "config.yml")) == Config()
+    assert port_cfg(JaxConfig()) == Config()
+    libritts = load_config(str(REPO / "configs" / "config_libritts.yml"))
+    assert libritts.model_params.multispeaker and dataclasses.asdict(libritts) != dataclasses.asdict(Config())
+
+
+def test_weight_round_trip_is_exact(setup):
+    """state_dict_from_jax is the exact inverse of convert_styletts2_checkpoint
+    on every leaf of the slice's modules, and loads strictly into the port."""
+    from styletts2_tpu_torch.models.build import build_models
+
+    jcfg, params = setup
+    sd = state_dict_from_jax(params)
+    port_sd = build_models(port_cfg(jcfg)).state_dict()
+    assert sd.keys() == port_sd.keys()
+    assert all(sd[k].shape == port_sd[k].shape for k in sd)
+
+    net = {key: {} for key in SLICE_MODULES}
+    for name, v in sd.items():
+        key, rest = name.split(".", 1)
+        net[key][rest] = v.numpy()
+    back = convert_styletts2_checkpoint({"net": net}, jcfg)
+    for key in SLICE_MODULES:
+        want = jax.tree_util.tree_flatten_with_path(params[key])[0]
+        got = jax.tree_util.tree_flatten_with_path(back[key])[0]
+        assert [p for p, _ in got] == [p for p, _ in want], key
+        for (path, g), (_, w) in zip(got, want):
+            assert g.shape == w.shape and np.array_equal(g, w), (key, path)
+
+
+def test_synthesizer_matches_jax(setup):
+    from styletts2_tpu.inference import Synthesizer as JaxSynthesizer
+    from styletts2_tpu_torch.inference import Synthesizer
+
+    jcfg, params = setup
+    noise = np.random.default_rng(9).standard_normal(
+        (1, 1, 2 * jcfg.model_params.style_dim)).astype(np.float32)
+    jsyn = JaxSynthesizer(jcfg, params=params)
+    seen = {}
+    get_phase_b = jsyn._get_phase_b
+
+    def spy(n_frames):  # records the durations the JAX decoder stage gets
+        pb = get_phase_b(n_frames)
+
+        def run(params_, t_en, d, s, ref, pred_dur, key, pcm16=False):
+            seen["pred_dur"] = np.asarray(pred_dur)
+            return pb(params_, t_en, d, s, ref, pred_dur, key, pcm16=pcm16)
+
+        return run
+
+    jsyn._get_phase_b = spy
+    psyn = Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params))
+    with zero_noise(), stable_har_phase():
+        want_wav, want_s = jsyn.inference(TEXT, noise=noise, speed=4.0)
+        got = psyn.synthesize(TEXT, noise=noise, speed=4.0)
+    L = len(got.pred_dur)
+    np.testing.assert_array_equal(got.pred_dur, seen["pred_dur"][0, :L])
+    assert rel_err(got.s_pred, want_s) < 1e-4
+    assert got.wav.shape == want_wav.shape == (int(got.pred_dur.sum()) * 600,)
+    assert np.isfinite(got.wav).all()
+    assert rel_err(got.wav, want_wav) < 1e-3
+
+
+def _run(code, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax():
+    """Importing the port and running a tiny CPU synthesis loads neither
+    JAX, flax, PyYAML, transformers nor the JAX package."""
+    code = """
+import sys
+from styletts2_tpu_torch.config import Config
+from styletts2_tpu_torch.inference import Synthesizer
+cfg = Config()
+cfg.plbert_params.num_hidden_layers = 1
+cfg.plbert_params.hidden_size = 64
+cfg.plbert_params.intermediate_size = 128
+cfg.plbert_params.num_attention_heads = 2
+cfg.model_params.hidden_dim = 64
+cfg.model_params.style_dim = 32
+cfg.model_params.diffusion.transformer.num_layers = 1
+cfg.model_params.decoder.upsample_initial_channel = 64
+wav, s = Synthesizer(cfg, seed=0).inference("hˈɛloʊ.", diffusion_steps=3, speed=8.0)
+assert wav.ndim == 1 and len(wav) > 0 and s.shape == (1, 64)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "transformers", "styletts2_tpu"))
+print("BAD", bad)
+"""
+    res = _run(code, REPO)
+    assert res.returncode == 0, res.stderr
+    assert "BAD []" in res.stdout, res.stdout
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """chip_smoke.py exits non-zero and prints no result line where there
+    is no card, and where it stands alone without the repo."""
+    res = _run(f"import runpy; runpy.run_path({str(REPO / 'chip_smoke.py')!r}, run_name='__main__')",
+               REPO)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    res = _run("import runpy; runpy.run_path('chip_smoke.py', run_name='__main__')", tmp_path)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
