@@ -1,7 +1,10 @@
 """The configuration fields the synthesis path reads.
 
 `Config()` equals `configs/config.yml` (single-speaker LJSpeech, iSTFTNet
-decoder). Unknown keys in a loaded YAML file are ignored, so the
+decoder) and `libritts_config()` equals `configs/config_libritts.yml`
+(zero-shot multispeaker, HiFi-GAN decoder), so a machine without PyYAML
+can build either; `config_from_path` builds those two files without
+reading them. Unknown keys in a loaded YAML file are ignored, so the
 reference-format configs load unchanged. PyYAML is imported only inside
 `load_config`.
 """
@@ -10,7 +13,10 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Any, Dict, List
+
+REPO_CONFIGS = Path(__file__).resolve().parents[1] / "configs"
 
 
 @dataclass
@@ -45,7 +51,8 @@ class DiffusionParams:
 @dataclass
 class ModelParams:
     multispeaker: bool = False
-    hidden_dim: int = 512
+    dim_in: int = 64  # the style encoders' first width
+    hidden_dim: int = 512  # also the style encoders' widest (as the reference builds them)
     n_layer: int = 3
     n_token: int = 178
     max_dur: int = 50
@@ -90,9 +97,30 @@ def _from_dict(cls, d: Dict[str, Any]):
     return cls(**kwargs)
 
 
+def libritts_config() -> Config:
+    """`configs/config_libritts.yml`: multispeaker, HiFi-GAN decoder at rates
+    10, 5, 3, 2."""
+    return Config(model_params=ModelParams(
+        multispeaker=True,
+        decoder=DecoderParams(type="hifigan", upsample_rates=[10, 5, 3, 2],
+                              upsample_kernel_sizes=[20, 10, 6, 4]),
+    ))
+
+
 def load_config(path: str) -> Config:
     """Load a reference-format YAML config (configs/*.yml)."""
     import yaml
 
     with open(path) as f:
         return Config.from_dict(yaml.safe_load(f))
+
+
+def config_from_path(path: str) -> Config:
+    """The config of a YAML file. The repository's `configs/config.yml` and
+    `configs/config_libritts.yml` are `Config()` and `libritts_config()`
+    (the tests hold them equal), so they need no PyYAML; any other file goes
+    through `load_config`."""
+    builtin = {REPO_CONFIGS / "config.yml": Config,
+               REPO_CONFIGS / "config_libritts.yml": libritts_config}
+    make = builtin.get(Path(path).resolve())
+    return make() if make else load_config(path)

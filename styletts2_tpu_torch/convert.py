@@ -1,14 +1,18 @@
 """JAX parameter tree -> the port's state_dict.
 
-`state_dict_from_jax(params)` takes the JAX package's variables for the
-synthesis path's modules ({module: {"params": tree}} with numpy-convertible
+`state_dict_from_jax(params, cfg)` takes the JAX package's variables for the
+modules `build.module_keys(cfg)` names ({module: {"params": tree}}, plus a
+"spectral" collection for the style encoders, with numpy-convertible
 leaves) and returns `{"<module>.<reference torch name>": tensor}`, the
 layout of `build_models(cfg).state_dict()`. It is the exact inverse of
 `styletts2_tpu/convert.py:convert_styletts2_checkpoint` on those modules:
   Dense (in, out) -> Linear (out, in); Conv (K, in, out) -> (out, in, K);
   weight-norm v likewise, g -> (C, 1, 1); ConvTranspose v stays
   (in, out/groups, K); snake alpha (1, 1, C) -> (1, C, 1); LayerNorm
-  scale -> weight; the LSTM's single bias b goes to bias_ih and bias_hh is 0.
+  scale -> weight; the LSTM's single bias b goes to bias_ih and bias_hh is 0;
+  a spectral-norm Conv2d kernel (kh, kw, in, out) -> weight_orig
+  (out, in, kh, kw), u -> weight_u, and v from (kh, kw, in) to torch's
+  (in, kh, kw) flattening -> weight_v.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-SLICE_MODULES = ("text_encoder", "bert", "bert_encoder", "predictor", "decoder", "diffusion")
+from styletts2_tpu_torch.config import Config
+from styletts2_tpu_torch.models.build import module_keys
 
 
 def _np(x) -> np.ndarray:
@@ -54,6 +59,16 @@ def _wnconvtr1d(p, sd, name):
     sd[f"{name}.weight_g"] = _np(p["g"]).reshape(-1, 1, 1)
     if "bias" in p:
         sd[f"{name}.bias"] = _np(p["bias"])
+
+
+def _snconv2d(p, spec, sd, name):
+    k = _np(p["kernel"])  # (kh, kw, in, out)
+    kh, kw, cin, _ = k.shape
+    sd[f"{name}.weight_orig"] = k.transpose(3, 2, 0, 1)
+    if "bias" in p:
+        sd[f"{name}.bias"] = _np(p["bias"])
+    sd[f"{name}.weight_u"] = _np(spec["u"])
+    sd[f"{name}.weight_v"] = _np(spec["v"]).reshape(kh, kw, cin).transpose(2, 0, 1).reshape(-1)
 
 
 def _bilstm(p, sd, name):
@@ -97,6 +112,20 @@ def _bert(p, sd):
 def _bert_encoder(p, sd):
     sd["weight"] = _np(p["proj"]["kernel"]).T
     sd["bias"] = _np(p["proj"]["bias"])
+
+
+def _style_encoder(v, sd):
+    p, spec = v["params"], v["spectral"]
+    n = _count(p, "block_")
+    _snconv2d(p["stem"], spec["stem"], sd, "shared.0")
+    for i in range(n):
+        bp, bs, b = p[f"block_{i}"], spec[f"block_{i}"], f"shared.{1 + i}"
+        for mine, theirs in (("conv1", "conv1"), ("conv2", "conv2"),
+                             ("downsample_res", "downsample_res.conv"), ("conv1x1", "conv1x1")):
+            if mine in bp:
+                _snconv2d(bp[mine], bs[mine], sd, f"{b}.{theirs}")
+    _snconv2d(p["conv5x5"], spec["conv5x5"], sd, f"shared.{n + 2}")
+    _lin(p["unshared"], sd, "unshared")
 
 
 def _adain_res_blk1d(p, sd, base):
@@ -144,6 +173,8 @@ def _decoder(p, sd):
     _wnconv1d(p["asr_res"], sd, "asr_res.0")
     g = p["generator"]
     _lin(g["m_source"]["l_linear"], sd, "generator.m_source.l_linear")
+    for i in range(_count(g, "alpha_")):  # HiFi-GAN's per-stage snakes
+        sd[f"generator.alphas.{i}"] = _np(g[f"alpha_{i}"]).transpose(0, 2, 1)
     num_kernels = len({k.split("_")[2] for k in g if k.startswith("resblocks_")})
     for i in range(_count(g, "ups_")):
         _wnconvtr1d(g[f"ups_{i}"], sd, f"generator.ups.{i}")
@@ -159,6 +190,8 @@ def _diffusion(p, sd):
     sd["fixed_embedding.embedding.weight"] = _np(p["fixed_embedding"])
     sd["to_time.0.0.weights"] = _np(p["to_time"]["weights"])
     _lin(p["to_time"]["proj"], sd, "to_time.0.1")
+    if "to_features" in p:  # multispeaker
+        _lin(p["to_features"], sd, "to_features.0")
     _lin(p["map1"], sd, "to_mapping.0")
     _lin(p["map2"], sd, "to_mapping.2")
     for i in range(_count(p, "block_")):
@@ -167,8 +200,11 @@ def _diffusion(p, sd):
         _lin(att["to_q"], sd, f"{b}.attention.to_q")
         _lin(att["to_kv"], sd, f"{b}.attention.to_kv")
         _lin(att["to_out"], sd, f"{b}.attention.attention.to_out")
-        _ln(att["norm"], sd, f"{b}.attention.norm")
-        _ln(att["norm_context"], sd, f"{b}.attention.norm_context")
+        for norm in ("norm", "norm_context"):
+            if "fc" in att[norm]:  # the multispeaker AdaLayerNorm
+                _lin(att[norm]["fc"], sd, f"{b}.attention.{norm}.fc")
+            else:
+                _ln(att[norm], sd, f"{b}.attention.{norm}")
         ff = p[f"block_{i}"]["feed_forward"]
         _lin(ff["in"], sd, f"{b}.feed_forward.0")
         _lin(ff["out"], sd, f"{b}.feed_forward.2")
@@ -176,22 +212,28 @@ def _diffusion(p, sd):
     sd["to_out.1.bias"] = _np(p["to_out"]["bias"])
 
 
+def _params_only(fn):
+    return lambda v, sd: fn(v["params"], sd)
+
+
 _MODULES = {
-    "text_encoder": _text_encoder,
-    "bert": _bert,
-    "bert_encoder": _bert_encoder,
-    "predictor": _predictor,
-    "decoder": _decoder,
-    "diffusion": _diffusion,
+    "text_encoder": _params_only(_text_encoder),
+    "bert": _params_only(_bert),
+    "bert_encoder": _params_only(_bert_encoder),
+    "predictor": _params_only(_predictor),
+    "decoder": _params_only(_decoder),
+    "diffusion": _params_only(_diffusion),
+    "style_encoder": _style_encoder,
+    "predictor_encoder": _style_encoder,
 }
 
 
-def state_dict_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX variables of the slice's modules -> the port's full state_dict."""
+def state_dict_from_jax(params: Dict[str, Any], cfg: Config) -> Dict[str, torch.Tensor]:
+    """JAX variables of `cfg`'s modules -> the port's full state_dict."""
     out: Dict[str, torch.Tensor] = {}
-    for key in SLICE_MODULES:
+    for key in module_keys(cfg):
         sd: Dict[str, np.ndarray] = {}
-        _MODULES[key](params[key]["params"], sd)
+        _MODULES[key](params[key], sd)
         for name, v in sd.items():
             out[f"{key}.{name}"] = torch.from_numpy(np.ascontiguousarray(v))
     return out

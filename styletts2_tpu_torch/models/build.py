@@ -1,63 +1,82 @@
 """Assembly of the synthesis path's modules, with seeded random weights.
 
 `build_models(cfg, generator)` returns an `nn.ModuleDict` keyed like the
-reference checkpoint's `net` dict: text_encoder, bert, bert_encoder,
-predictor, decoder, diffusion. Its `state_dict()` keys are therefore
-`<module>.<reference torch name>`, the layout `convert.state_dict_from_jax`
-produces.
+reference checkpoint's `net` dict (`module_keys(cfg)`): text_encoder, bert,
+bert_encoder, predictor, decoder (iSTFTNet or HiFi-GAN, as
+`decoder.type` says), diffusion, and for a multispeaker config the mel
+style encoders style_encoder and predictor_encoder. Its `state_dict()`
+keys are therefore `<module>.<reference torch name>`, the layout
+`convert.state_dict_from_jax` produces.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from styletts2_tpu_torch.config import Config
-from styletts2_tpu_torch.models.decoder_istft import Decoder
+from styletts2_tpu_torch.models import decoder_hifigan, decoder_istft
 from styletts2_tpu_torch.models.diffusion.denoiser import LearnedPositionalEmbedding, Transformer1d
-from styletts2_tpu_torch.models.layers import WNConv1d, WNConvTranspose1d
+from styletts2_tpu_torch.models.layers import SNConv2d, WNConv1d, WNConvTranspose1d
 from styletts2_tpu_torch.models.plbert import PLBERT, AlbertEmbeddings
 from styletts2_tpu_torch.models.predictor import ProsodyPredictor
+from styletts2_tpu_torch.models.style_encoder import StyleEncoder
 from styletts2_tpu_torch.models.text_encoder import TextEncoder
+
+BASE_MODULES = ("text_encoder", "bert", "bert_encoder", "predictor", "decoder", "diffusion")
+STYLE_MODULES = ("style_encoder", "predictor_encoder")
 
 
 class BertEncoder(nn.Linear):
     """PL-BERT hidden -> hidden_dim projection."""
 
 
+def module_keys(cfg: Config) -> Tuple[str, ...]:
+    """The modules synthesis with `cfg` runs: the style encoders only when
+    multispeaker, where `compute_style` needs them."""
+    return BASE_MODULES + (STYLE_MODULES if cfg.model_params.multispeaker else ())
+
+
 def build_models(cfg: Config, generator: Optional[torch.Generator] = None) -> nn.ModuleDict:
     mp = cfg.model_params
-    if mp.multispeaker or mp.decoder.type != "istftnet":
-        raise NotImplementedError(
-            "the port covers single-speaker synthesis with the iSTFTNet decoder"
-        )
     dec = mp.decoder
     tr = mp.diffusion.transformer
     pb = cfg.plbert_params
+    common = dict(
+        dim_in=mp.hidden_dim, style_dim=mp.style_dim,
+        resblock_kernel_sizes=tuple(dec.resblock_kernel_sizes),
+        upsample_rates=tuple(dec.upsample_rates),
+        upsample_initial_channel=dec.upsample_initial_channel,
+        resblock_dilation_sizes=tuple(map(tuple, dec.resblock_dilation_sizes)),
+        upsample_kernel_sizes=tuple(dec.upsample_kernel_sizes),
+    )
+    if dec.type == "istftnet":
+        decoder = decoder_istft.Decoder(**common, gen_istft_n_fft=dec.gen_istft_n_fft,
+                                        gen_istft_hop_size=dec.gen_istft_hop_size)
+    elif dec.type == "hifigan":
+        decoder = decoder_hifigan.Decoder(**common)
+    else:
+        raise ValueError(f"unknown decoder type {dec.type!r}")
     models = nn.ModuleDict({
         "text_encoder": TextEncoder(mp.hidden_dim, 5, mp.n_layer, mp.n_token),
         "bert": PLBERT(pb),
         "bert_encoder": BertEncoder(pb.hidden_size, mp.hidden_dim),
         "predictor": ProsodyPredictor(mp.style_dim, mp.hidden_dim, mp.n_layer, mp.max_dur),
-        "decoder": Decoder(
-            dim_in=mp.hidden_dim, style_dim=mp.style_dim,
-            resblock_kernel_sizes=tuple(dec.resblock_kernel_sizes),
-            upsample_rates=tuple(dec.upsample_rates),
-            upsample_initial_channel=dec.upsample_initial_channel,
-            resblock_dilation_sizes=tuple(map(tuple, dec.resblock_dilation_sizes)),
-            upsample_kernel_sizes=tuple(dec.upsample_kernel_sizes),
-            gen_istft_n_fft=dec.gen_istft_n_fft, gen_istft_hop_size=dec.gen_istft_hop_size,
-        ),
+        "decoder": decoder,
         "diffusion": Transformer1d(
             channels=mp.style_dim * 2, context_embedding_features=pb.hidden_size,
             num_layers=tr.num_layers, num_heads=tr.num_heads,
             head_features=tr.head_features, multiplier=tr.multiplier,
             embedding_max_length=pb.max_position_embeddings,
+            context_features=mp.style_dim * 2 if mp.multispeaker else 0,
         ),
     })
+    if mp.multispeaker:
+        for key in STYLE_MODULES:  # the reference builds them up to hidden_dim wide
+            models[key] = StyleEncoder(mp.dim_in, mp.style_dim, max_conv_dim=mp.hidden_dim)
     _init_weights(models, generator)
     return models
 
@@ -68,8 +87,9 @@ def _init_weights(root: nn.Module, generator: Optional[torch.Generator] = None) 
     distributions: lecun-normal dense kernels and zero biases; U(+-1/sqrt(fan_in))
     convs and LSTMs; weight-norm g = 1; embeddings N(0, 1/sqrt(features)),
     except PL-BERT's positional tables N(0, 0.02) and the denoiser's fixed
-    embedding and Fourier weights N(0, 1). Norm scales and snake alphas keep
-    their constructor values (ones / zeros)."""
+    embedding and Fourier weights N(0, 1); spectral-norm convs U(+-1/sqrt(fan_in))
+    with their (u, v) aligned to the weight's top singular vectors. Norm
+    scales and snake alphas keep their constructor values (ones / zeros)."""
     g = generator
 
     def uniform_(t, bound):
@@ -108,6 +128,12 @@ def _init_weights(root: nn.Module, generator: Optional[torch.Generator] = None) 
                     p.zero_()  # the JAX LSTM has one bias, b_ih + b_hh
                 else:
                     uniform_(p, bound)
+        elif isinstance(mod, SNConv2d):
+            bound = 1.0 / math.sqrt(mod.weight_orig[0].numel())
+            uniform_(mod.weight_orig, bound)
+            if mod.bias is not None:
+                uniform_(mod.bias, bound)
+            _align_spectral(mod, torch.randn(mod.weight_u.shape, generator=g))
         elif isinstance(mod, nn.Embedding):
             normal_(mod.weight, 1.0 / math.sqrt(mod.embedding_dim))
         elif isinstance(mod, LearnedPositionalEmbedding):
@@ -120,3 +146,21 @@ def _init_weights(root: nn.Module, generator: Optional[torch.Generator] = None) 
             normal_(mod.fixed_embedding.embedding.weight, 1.0)
             lecun_(mod.to_out[1])  # a dense layer in the JAX package
 
+
+
+def _align_spectral(mod: SNConv2d, u: torch.Tensor, iters: int = 3) -> None:
+    """Set (weight_u, weight_v) to the weight's top singular vectors by power
+    iteration from `u`, as `styletts2_tpu/models/build.py:_fi_spectral_align`
+    does. Random independent (u, v) would make sigma ~ ||W||_F / sqrt(n m),
+    far below the top singular value, and W / sigma would amplify ~50x per
+    layer through the normalisation-free SN stack."""
+    w = mod.weight_orig.detach().double()
+    wm = w.reshape(w.shape[0], -1)
+    u = u.double()
+    for _ in range(iters):
+        v = wm.T @ u
+        v = v / (v.norm() + 1e-12)
+        u = wm @ v
+        u = u / (u.norm() + 1e-12)
+    mod.weight_u.copy_(u.float())
+    mod.weight_v.copy_(v.float())

@@ -167,17 +167,15 @@ class Generator(nn.Module):
                      self.n_fft, self.hop, self.n_fft)
 
 
-class Decoder(nn.Module):
-    """AdaIN decoder driving the Generator.
+class DecoderHead(nn.Module):
+    """The AdaIN encode/decode head that drives a Generator, shared by the
+    iSTFTNet and HiFi-GAN decoders; a subclass sets `self.generator`.
 
     asr (B, dim_in, T_en) text features; F0_curve, N (B, 2*T_en); s (B,
-    style_dim) -> wav (B, T_en * 600)."""
+    style_dim) -> the generator's waveform."""
 
-    def __init__(self, dim_in: int = 512, style_dim: int = 128, resblock_kernel_sizes=(3, 7, 11),
-                 upsample_rates=(10, 6), upsample_initial_channel: int = 512,
-                 resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
-                 upsample_kernel_sizes=(20, 12), gen_istft_n_fft: int = 20,
-                 gen_istft_hop_size: int = 5, bottleneck: int = 1024):
+    def __init__(self, dim_in: int, style_dim: int, upsample_initial_channel: int,
+                 bottleneck: int = 1024):
         super().__init__()
         bn = bottleneck
         self.F0_conv = WNConv1d(1, 1, 3, stride=2, padding=1)
@@ -190,9 +188,6 @@ class Decoder(nn.Module):
             AdainResBlk1d(bn + 2 + 64, bn, style_dim),
             AdainResBlk1d(bn + 2 + 64, upsample_initial_channel, style_dim, upsample=True),
         ])
-        self.generator = Generator(style_dim, resblock_kernel_sizes, upsample_rates,
-                                   upsample_initial_channel, resblock_dilation_sizes,
-                                   upsample_kernel_sizes, gen_istft_n_fft, gen_istft_hop_size)
 
     def forward(self, asr, f0_curve, n_curve, s, generator: Optional[torch.Generator] = None):
         F0 = self.F0_conv(f0_curve[:, None])
@@ -203,3 +198,16 @@ class Decoder(nn.Module):
             x = blk(torch.cat([x, asr_res, F0, N], dim=1), s)
         return self.generator(x, s, f0_curve, generator)
 
+
+class Decoder(DecoderHead):
+    """The AdaIN head driving the iSTFTNet Generator: wav (B, T_en * 600)."""
+
+    def __init__(self, dim_in: int = 512, style_dim: int = 128, resblock_kernel_sizes=(3, 7, 11),
+                 upsample_rates=(10, 6), upsample_initial_channel: int = 512,
+                 resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
+                 upsample_kernel_sizes=(20, 12), gen_istft_n_fft: int = 20,
+                 gen_istft_hop_size: int = 5, bottleneck: int = 1024):
+        super().__init__(dim_in, style_dim, upsample_initial_channel, bottleneck)
+        self.generator = Generator(style_dim, resblock_kernel_sizes, upsample_rates,
+                                   upsample_initial_channel, resblock_dilation_sizes,
+                                   upsample_kernel_sizes, gen_istft_n_fft, gen_istft_hop_size)

@@ -1,13 +1,16 @@
-"""Single-speaker style denoiser, Transformer1d
-(`styletts2_tpu/models/diffusion/denoiser.py`, style_cond=False).
+"""Style denoisers (`styletts2_tpu/models/diffusion/denoiser.py`):
+Transformer1d (single-speaker, style_cond=False) and StyleTransformer1d
+(multispeaker, style_cond=True).
 
 The (B, 1, channels) noisy style is broadcast along the PL-BERT sequence,
 concatenated with it, run through pre-LN transformer blocks with a
 time-mapping vector added before each, mean-pooled over the valid positions
 and projected back. Padded keys are masked out of the attention with
 finfo.min, and classifier-free guidance runs cond and uncond as one batched
-pass. Attention is plain tensor ops. Module names follow the reference
-checkpoint (`styletts2_tpu/convert.py:convert_diffusion`).
+pass. The multispeaker net also maps the reference style `features` into
+the mapping vector and normalises the attention inputs with AdaLayerNorms
+conditioned on them. Attention is plain tensor ops. Module names follow the
+reference checkpoint (`styletts2_tpu/convert.py:convert_diffusion`).
 """
 
 from __future__ import annotations
@@ -18,7 +21,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-# flax.linen.LayerNorm's default epsilon, which the JAX denoiser uses
+from styletts2_tpu_torch.models.layers import AdaLayerNorm
+
+# flax.linen.LayerNorm's default epsilon, which the JAX single-speaker
+# denoiser uses; its AdaLayerNorm keeps 1e-5
 _LN_EPS = 1e-6
 
 
@@ -53,23 +59,29 @@ class AttentionOut(nn.Module):
 
 class SelfAttention(nn.Module):
     """Pre-LN self-attention with separate norms for the query and key/value
-    inputs, as the reference has."""
+    inputs, as the reference has; AdaLayerNorms on the style features when
+    `style_dim` > 0."""
 
-    def __init__(self, features: int, num_heads: int, head_features: int):
+    def __init__(self, features: int, num_heads: int, head_features: int, style_dim: int = 0):
         super().__init__()
         mid = num_heads * head_features
         self.num_heads, self.head_features = num_heads, head_features
-        self.norm = nn.LayerNorm(features, eps=_LN_EPS)
-        self.norm_context = nn.LayerNorm(features, eps=_LN_EPS)
+        if style_dim:
+            self.norm = AdaLayerNorm(style_dim, features)
+            self.norm_context = AdaLayerNorm(style_dim, features)
+        else:
+            self.norm = nn.LayerNorm(features, eps=_LN_EPS)
+            self.norm_context = nn.LayerNorm(features, eps=_LN_EPS)
         self.to_q = nn.Linear(features, mid, bias=False)
         self.to_kv = nn.Linear(features, mid * 2, bias=False)
         self.attention = AttentionOut(mid, features)
 
-    def forward(self, x, valid: Optional[torch.Tensor] = None):
+    def forward(self, x, s=None, valid: Optional[torch.Tensor] = None):
         B, T, _ = x.shape
         nh, dh = self.num_heads, self.head_features
-        q = self.to_q(self.norm(x)).view(B, T, nh, dh).transpose(1, 2)
-        k, v = self.to_kv(self.norm_context(x)).chunk(2, dim=-1)
+        norm_args = (x,) if s is None else (x, s)
+        q = self.to_q(self.norm(*norm_args)).view(B, T, nh, dh).transpose(1, 2)
+        k, v = self.to_kv(self.norm_context(*norm_args)).chunk(2, dim=-1)
         k = k.reshape(B, T, nh, dh).transpose(1, 2)
         v = v.reshape(B, T, nh, dh).transpose(1, 2)
         logits = (q @ k.transpose(-1, -2)) * (dh ** -0.5)
@@ -81,23 +93,29 @@ class SelfAttention(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    def __init__(self, features: int, num_heads: int, head_features: int, multiplier: int):
+    def __init__(self, features: int, num_heads: int, head_features: int, multiplier: int,
+                 style_dim: int = 0):
         super().__init__()
-        self.attention = SelfAttention(features, num_heads, head_features)
+        self.attention = SelfAttention(features, num_heads, head_features, style_dim)
         self.feed_forward = nn.Sequential(
             nn.Linear(features, features * multiplier), nn.GELU(),
             nn.Linear(features * multiplier, features),
         )
 
-    def forward(self, x, valid=None):
-        x = self.attention(x, valid) + x
+    def forward(self, x, s=None, valid=None):
+        x = self.attention(x, s, valid) + x
         return self.feed_forward(x) + x
 
 
 class Transformer1d(nn.Module):
+    """With `context_features` > 0 this is the multispeaker
+    StyleTransformer1d: `features` (B, context_features) enter the mapping
+    through `to_features` and condition every attention norm."""
+
     def __init__(self, channels: int = 256, context_embedding_features: int = 768,
                  num_layers: int = 3, num_heads: int = 8, head_features: int = 64,
-                 multiplier: int = 2, embedding_max_length: int = 512):
+                 multiplier: int = 2, embedding_max_length: int = 512,
+                 context_features: int = 0):
         super().__init__()
         self.channels = channels
         M = channels + context_embedding_features
@@ -106,18 +124,24 @@ class Transformer1d(nn.Module):
             nn.Sequential(LearnedPositionalEmbedding(channels), nn.Linear(channels + 1, M)),
             nn.GELU(),
         )
+        if context_features:
+            self.to_features = nn.Sequential(nn.Linear(context_features, M), nn.GELU())
         self.to_mapping = nn.Sequential(nn.Linear(M, M), nn.GELU(), nn.Linear(M, M), nn.GELU())
         self.blocks = nn.ModuleList(
-            TransformerBlock(M, num_heads, head_features, multiplier) for _ in range(num_layers)
+            TransformerBlock(M, num_heads, head_features, multiplier, context_features)
+            for _ in range(num_layers)
         )
         self.to_out = nn.Sequential(_SwapLast(), nn.Conv1d(M, channels, 1), _SwapLast())
 
-    def _run(self, x, time, emb, valid):
+    def _run(self, x, time, emb, feats, valid):
         T = emb.shape[1]
-        mapping = self.to_mapping(self.to_time(time))
+        items = self.to_time(time)
+        if feats is not None:
+            items = items + self.to_features(feats)
+        mapping = self.to_mapping(items)
         h = torch.cat([x.expand(-1, T, self.channels), emb], dim=-1)
         for blk in self.blocks:
-            h = blk(h + mapping[:, None, :], valid)
+            h = blk(h + mapping[:, None, :], feats, valid)
         if valid is not None:
             h = (h * valid[..., None]).sum(dim=1, keepdim=True) / (
                 valid.sum(dim=1)[:, None, None] + 1e-8)
@@ -126,10 +150,14 @@ class Transformer1d(nn.Module):
         return self.to_out(h)
 
     def forward(self, x, time, embedding, embedding_scale: float = 1.0,
-                embedding_lengths: Optional[torch.Tensor] = None):
+                embedding_lengths: Optional[torch.Tensor] = None,
+                features: Optional[torch.Tensor] = None):
         """x (B, 1, channels) noisy style; time (B,) c_noise; embedding
         (B, T, E) PL-BERT features; embedding_lengths (B,) masks padded
-        positions -> (B, 1, channels)."""
+        positions; features (B, context_features) the reference style of the
+        multispeaker net -> (B, 1, channels)."""
+        if (features is None) != (not hasattr(self, "to_features")):
+            raise ValueError("`features` are needed by, and only by, the multispeaker denoiser")
         B, T = embedding.shape[:2]
         fixed = self.fixed_embedding.embedding.weight[None, :T].expand(B, T, -1)
         valid = None
@@ -137,10 +165,11 @@ class Transformer1d(nn.Module):
             valid = (torch.arange(T, device=embedding.device)[None, :]
                      < embedding_lengths.to(embedding.device)[:, None]).to(embedding.dtype)
         if embedding_scale == 1.0:
-            return self._run(x, time, embedding, valid)
+            return self._run(x, time, embedding, features, valid)
         # classifier-free guidance: cond and uncond in one batched pass
         out2 = self._run(
             torch.cat([x, x]), torch.cat([time, time]), torch.cat([embedding, fixed]),
+            None if features is None else torch.cat([features, features]),
             None if valid is None else torch.cat([valid, valid]),
         )
         out, out_masked = out2[:B], out2[B:]

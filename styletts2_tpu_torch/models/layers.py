@@ -1,4 +1,5 @@
-"""Core building blocks, NCW layout (batch, channels, time).
+"""Core building blocks, NCW layout (batch, channels, time); NCHW for the
+2D convolutions of the style encoders.
 
 Counterparts of `styletts2_tpu/models/layers.py`. Parameter names follow the
 reference torch checkpoints that `styletts2_tpu/convert.py` reads (weight_v,
@@ -68,6 +69,38 @@ class WNConvTranspose1d(nn.Module):
         return F.conv_transpose1d(
             x, w, self.bias, self.stride, self.padding, self.output_padding, self.groups
         )
+
+
+class SNConv2d(nn.Module):
+    """Spectral-normalised Conv2d at inference, NCHW.
+
+    torch `spectral_norm`'s names: the parameter `weight_orig` (out, in/groups,
+    kh, kw) and the buffers `weight_u` (out,) and `weight_v` (in/groups*kh*kw,)
+    in that flattening order. No power iteration runs: the weight is divided
+    by sigma = u . (W_mat v) with the stored vectors, as at eval time."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, groups=1, bias=True):
+        super().__init__()
+        kh, kw = (kernel_size, kernel_size) if isinstance(kernel_size, int) else kernel_size
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight_orig = nn.Parameter(torch.empty(out_ch, in_ch // groups, kh, kw))
+        self.register_buffer("weight_u", torch.zeros(out_ch))
+        self.register_buffer("weight_v", torch.zeros(in_ch // groups * kh * kw))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+
+    def forward(self, x):
+        w = self.weight_orig
+        sigma = self.weight_u @ (w.reshape(w.shape[0], -1) @ self.weight_v)
+        return F.conv2d(x, w / sigma, self.bias, self.stride, self.padding, 1, self.groups)
+
+
+def avg_pool_2d_2x(x: torch.Tensor) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C, H // 2, ceil(W / 2)): the reference's 'half'
+    downsample repeats the last column on an odd W; avg_pool2d floors an
+    odd H."""
+    if x.shape[-1] % 2:
+        x = torch.cat([x, x[..., -1:]], dim=-1)
+    return F.avg_pool2d(x, 2)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

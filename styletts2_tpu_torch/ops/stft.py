@@ -1,8 +1,10 @@
-"""STFT and inverse STFT for the iSTFTNet head, torch.stft/istft semantics.
+"""STFT, inverse STFT and the mel front end, torch.stft/istft semantics.
 
 Counterparts of `styletts2_tpu/ops/stft.py`: a centred, reflect-padded
-STFT with a Hann window zero-padded to n_fft, and an overlap-add inverse
-normalised by the summed squared window. The FFTs are `torch.fft`.
+STFT with a Hann window zero-padded to n_fft, an overlap-add inverse
+normalised by the summed squared window (the iSTFTNet head), and the
+style encoders' normalised log-mel (`preprocess_mel`). The FFTs are
+`torch.fft`.
 """
 
 from __future__ import annotations
@@ -77,3 +79,49 @@ def istft(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int, hop_length: 
     y = y / wss.to(y.device)
     half = n_fft // 2
     return y[..., half: y.shape[-1] - half]
+
+
+# ---------------------------------------------------------------------------
+# Mel front end (styletts2_tpu/ops/stft.py:52-74, 210-233)
+# ---------------------------------------------------------------------------
+
+MEL_MEAN = -4.0
+MEL_STD = 4.0
+# the reference's torchaudio MelSpectrogram: n_fft 2048, window 1200, hop 300,
+# 80 bins of power 2, and a filterbank for torchaudio's default 16 kHz although
+# the audio is 24 kHz (its checkpoints were trained on that)
+MEL_N_FFT, MEL_WIN, MEL_HOP, N_MELS, MEL_FB_RATE = 2048, 1200, 300, 80, 16000
+
+
+def _hz_to_mel_htk(f):
+    return 2595.0 * np.log10(1.0 + np.asarray(f, dtype=np.float64) / 700.0)
+
+
+def _mel_to_hz_htk(m):
+    return 700.0 * (10.0 ** (np.asarray(m, dtype=np.float64) / 2595.0) - 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def mel_filterbank(n_freqs: int, n_mels: int, sample_rate: int = MEL_FB_RATE) -> np.ndarray:
+    """HTK-scale triangular filterbank from 0 Hz to Nyquist without area
+    normalisation, (n_freqs, n_mels) f32: torchaudio's
+    melscale_fbanks(norm=None, mel_scale='htk')."""
+    all_freqs = np.linspace(0.0, sample_rate / 2.0, n_freqs)
+    f_pts = _mel_to_hz_htk(np.linspace(0.0, _hz_to_mel_htk(sample_rate / 2.0), n_mels + 2))
+    f_diff = np.diff(f_pts)
+    slopes = f_pts[None, :] - all_freqs[:, None]
+    down = -slopes[:, :-2] / f_diff[:-1]
+    up = slopes[:, 2:] / f_diff[1:]
+    return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
+
+
+def melspectrogram(wave: torch.Tensor) -> torch.Tensor:
+    """Power mel spectrogram (B, T) -> (B, 80, 1 + T // 300)."""
+    p = stft(wave, MEL_N_FFT, MEL_HOP, MEL_WIN).abs() ** 2  # (B, n_freq, F)
+    fb = torch.from_numpy(mel_filterbank(MEL_N_FFT // 2 + 1, N_MELS)).to(wave.device)
+    return torch.einsum("bft,fm->bmt", p, fb)
+
+
+def preprocess_mel(wave: torch.Tensor) -> torch.Tensor:
+    """Wave (B, T) -> normalised log mel (log(1e-5 + mel) + 4) / 4."""
+    return (torch.log(1e-5 + melspectrogram(wave)) - MEL_MEAN) / MEL_STD

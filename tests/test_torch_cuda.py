@@ -17,11 +17,18 @@ from styletts2_tpu_torch.ops.adain_snake import adain_snake, adain_snake_ref
 
 pytestmark = pytest.mark.gpu
 
-# the main path's stage-0 and stage-1 shapes at an 8 s utterance, the JAX
+# the iSTFTNet path's stage-0 and stage-1 shapes at an 8 s utterance, the
+# HiFi-GAN path's four stages at an 8 s utterance (F = 320 frames: 20F,
+# 100F, 300F, 600F) and its last stage batched by the server, the JAX
 # tests' cases, odd T below 64 and T = 1
 CASES = [
     ((1, 256, 8000), torch.float32),
     ((1, 128, 48001), torch.float32),
+    ((1, 256, 6400), torch.float32),
+    ((1, 128, 32000), torch.float32),
+    ((1, 64, 96000), torch.float32),
+    ((1, 32, 192000), torch.float32),
+    ((8, 32, 192000), torch.float32),
     ((2, 256, 24), torch.float32),
     ((3, 256, 128), torch.float32),
     ((2, 256, 160), torch.bfloat16),

@@ -19,7 +19,8 @@ import numpy as np
 import pytest
 
 from styletts2_tpu.convert import convert_styletts2_checkpoint
-from styletts2_tpu_torch.convert import SLICE_MODULES, state_dict_from_jax
+from styletts2_tpu_torch.convert import state_dict_from_jax
+from styletts2_tpu_torch.models.build import module_keys
 from torch_parity import (jax_cfg, jax_models_and_params, port_cfg, rel_err,
                           stable_har_phase, zero_noise)
 
@@ -35,16 +36,20 @@ def setup():
 
 
 def test_config_defaults_are_config_yml():
-    """Config() is configs/config.yml, and agrees with the JAX package's
-    Config on every field the port reads."""
+    """Config() is configs/config.yml and libritts_config() is
+    configs/config_libritts.yml, and both agree with the JAX package's
+    loaded configs on every field the port reads."""
     import dataclasses
 
     from styletts2_tpu.config import Config as JaxConfig
-    from styletts2_tpu_torch.config import Config, load_config
+    from styletts2_tpu.config import load_config as jax_load_config
+    from styletts2_tpu_torch.config import Config, libritts_config, load_config
 
     assert load_config(str(REPO / "configs" / "config.yml")) == Config()
     assert port_cfg(JaxConfig()) == Config()
     libritts = load_config(str(REPO / "configs" / "config_libritts.yml"))
+    assert libritts == libritts_config()
+    assert port_cfg(jax_load_config(str(REPO / "configs" / "config_libritts.yml"))) == libritts
     assert libritts.model_params.multispeaker and dataclasses.asdict(libritts) != dataclasses.asdict(Config())
 
 
@@ -54,17 +59,18 @@ def test_weight_round_trip_is_exact(setup):
     from styletts2_tpu_torch.models.build import build_models
 
     jcfg, params = setup
-    sd = state_dict_from_jax(params)
+    sd = state_dict_from_jax(params, port_cfg(jcfg))
     port_sd = build_models(port_cfg(jcfg)).state_dict()
     assert sd.keys() == port_sd.keys()
     assert all(sd[k].shape == port_sd[k].shape for k in sd)
 
-    net = {key: {} for key in SLICE_MODULES}
+    keys = module_keys(port_cfg(jcfg))
+    net = {key: {} for key in keys}
     for name, v in sd.items():
         key, rest = name.split(".", 1)
         net[key][rest] = v.numpy()
     back = convert_styletts2_checkpoint({"net": net}, jcfg)
-    for key in SLICE_MODULES:
+    for key in keys:
         want = jax.tree_util.tree_flatten_with_path(params[key])[0]
         got = jax.tree_util.tree_flatten_with_path(back[key])[0]
         assert [p for p, _ in got] == [p for p, _ in want], key
@@ -93,7 +99,7 @@ def test_synthesizer_matches_jax(setup):
         return run
 
     jsyn._get_phase_b = spy
-    psyn = Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params))
+    psyn = Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params, port_cfg(jcfg)))
     with zero_noise(), stable_har_phase():
         want_wav, want_s = jsyn.inference(TEXT, noise=noise, speed=4.0)
         got = psyn.synthesize(TEXT, noise=noise, speed=4.0)
@@ -105,30 +111,57 @@ def test_synthesizer_matches_jax(setup):
     assert rel_err(got.wav, want_wav) < 1e-3
 
 
+def test_last_token_pad_follows_the_option(setup):
+    """The +5 frames on the last token come only with pad_last_token, which
+    defaults on for single-speaker; LFinference turns it off, as the JAX
+    Synthesizer does."""
+    from styletts2_tpu_torch.inference import Synthesizer
+
+    jcfg, params = setup
+    psyn = Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params, port_cfg(jcfg)))
+    kw = dict(diffusion_steps=3, speed=4.0, seed=1)
+    padded = psyn.synthesize(TEXT, **kw)
+    plain = psyn.synthesize(TEXT, pad_last_token=False, **kw)
+    np.testing.assert_array_equal(padded.pred_dur[:-1], plain.pred_dur[:-1])
+    assert padded.pred_dur[-1] == plain.pred_dur[-1] + 5
+    assert len(plain.wav) == int(plain.pred_dur.sum()) * 600
+    lf, _ = psyn.LFinference(TEXT, None, **kw)
+    assert len(lf) == len(plain.wav)
+    trimmed = psyn.synthesize(TEXT, trim_samples=7, **kw)
+    np.testing.assert_array_equal(trimmed.wav, padded.wav[:-7])
+
+
 def _run(code, cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"  # beside the suite's other workers
     return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=300)
 
 
 def test_port_imports_no_jax():
-    """Importing the port and running a tiny CPU synthesis loads neither
-    JAX, flax, PyYAML, transformers nor the JAX package."""
+    """Importing the port and its server and running a tiny single-speaker
+    and a tiny multispeaker CPU synthesis loads neither JAX, flax, PyYAML,
+    transformers nor the JAX package."""
     code = """
 import sys
-from styletts2_tpu_torch.config import Config
+import numpy as np
+import styletts2_tpu_torch.serve
+from styletts2_tpu_torch.config import Config, libritts_config
 from styletts2_tpu_torch.inference import Synthesizer
-cfg = Config()
-cfg.plbert_params.num_hidden_layers = 1
-cfg.plbert_params.hidden_size = 64
-cfg.plbert_params.intermediate_size = 128
-cfg.plbert_params.num_attention_heads = 2
-cfg.model_params.hidden_dim = 64
-cfg.model_params.style_dim = 32
-cfg.model_params.diffusion.transformer.num_layers = 1
-cfg.model_params.decoder.upsample_initial_channel = 64
-wav, s = Synthesizer(cfg, seed=0).inference("hˈɛloʊ.", diffusion_steps=3, speed=8.0)
-assert wav.ndim == 1 and len(wav) > 0 and s.shape == (1, 64)
+for cfg in (Config(), libritts_config()):
+    cfg.plbert_params.num_hidden_layers = 1
+    cfg.plbert_params.hidden_size = 64
+    cfg.plbert_params.intermediate_size = 128
+    cfg.plbert_params.num_attention_heads = 2
+    cfg.model_params.hidden_dim = 64
+    cfg.model_params.style_dim = 32
+    cfg.model_params.dim_in = 16
+    cfg.model_params.diffusion.transformer.num_layers = 1
+    cfg.model_params.decoder.upsample_initial_channel = 64
+    syn = Synthesizer(cfg, seed=0)
+    ref = syn.compute_style(np.sin(np.arange(30000) / 20.0)) if syn.multispeaker else None
+    wav, s = syn.inference("hˈɛloʊ.", ref_s=ref, diffusion_steps=3, speed=8.0)
+    assert wav.ndim == 1 and len(wav) > 0 and np.isfinite(wav).all() and s.shape == (1, 64)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "transformers", "styletts2_tpu"))
 print("BAD", bad)

@@ -4,6 +4,8 @@ Random JAX parameters at the tiny widths of `parallel/tiny.py` are made
 host-side from a numpy seed (the init functions' shapes come from
 `jax.eval_shape`, so no XLA init program runs), converted with
 `styletts2_tpu_torch.convert.state_dict_from_jax` and loaded into the port.
+`jax_cfg()` is the single-speaker iSTFTNet config, `jax_ms_cfg()` the
+multispeaker HiFi-GAN one of configs/config_libritts.yml at the same widths.
 Inputs are numpy arrays handed to both frameworks; activations cross the
 boundary transposed (JAX NWC, the port NCW).
 """
@@ -22,6 +24,10 @@ import torch
 from styletts2_tpu.parallel.tiny import tiny_config
 from styletts2_tpu_torch.config import Config as PortConfig
 
+# the suite runs in several worker processes on a few cores, beside XLA's own
+# threads; torch's intra-op pool in every worker would oversubscribe them
+torch.set_num_threads(1)
+
 
 def jax_cfg():
     """Tiny widths, three decoder resblock kernels so `resblocks.{i*3+j}`
@@ -30,6 +36,17 @@ def jax_cfg():
     cfg.plbert_params.intermediate_size = 256
     cfg.model_params.decoder.resblock_kernel_sizes = [3, 7, 11]
     cfg.model_params.decoder.resblock_dilation_sizes = [[1, 3, 5]] * 3
+    return cfg
+
+
+def jax_ms_cfg():
+    """`jax_cfg()` made multispeaker with the LibriTTS HiFi-GAN decoder
+    (rates 10, 5, 3, 2: Generator widths 64 -> 32 -> 16 -> 8)."""
+    cfg = jax_cfg()
+    cfg.model_params.multispeaker = True
+    cfg.model_params.decoder.type = "hifigan"
+    cfg.model_params.decoder.upsample_rates = [10, 5, 3, 2]
+    cfg.model_params.decoder.upsample_kernel_sizes = [20, 10, 6, 4]
     return cfg
 
 
@@ -57,17 +74,28 @@ def _fill(tree, rng, name=""):
 
 
 def jax_models_and_params(jcfg, seed: int = 0):
-    """(JAX Models, variables) with every leaf drawn from numpy `seed`."""
-    from styletts2_tpu.models.build import build_models, init_params
+    """(JAX Models, variables) with every leaf drawn from numpy `seed`,
+    for the modules the port builds for `jcfg`. The style encoders'
+    spectral-norm (u, v) are drawn too, then aligned to their kernels' top
+    singular vectors as the JAX fast init does: independent random vectors
+    would make each SN layer amplify ~50x."""
+    from styletts2_tpu.models.build import _fi_spectral_align, build_models, init_params
+    from styletts2_tpu_torch.models.build import module_keys
 
     models = build_models(jcfg)
     shapes = jax.eval_shape(lambda k: init_params(models, k, jcfg), jax.random.PRNGKey(0))
-    keys = ("text_encoder", "bert", "bert_encoder", "predictor", "decoder", "diffusion")
     rng = np.random.default_rng(seed)
-    params = {k: _fill(shapes[k], rng) for k in keys}
-    # the Generator's head is exp(log-magnitude); at random weights its gain
-    # can push that past f32's range once the source noise is zeroed
-    params["decoder"]["params"]["generator"]["conv_post"]["g"] *= 0.1
+    params = {k: _fill(shapes[k], rng) for k in module_keys(port_cfg(jcfg))}
+    for v in params.values():
+        if "spectral" in v:
+            _fi_spectral_align(v["spectral"], v["params"])
+    # at random weights the Generator's head overflows or saturates: the
+    # iSTFTNet head is exp(log-magnitude), which can pass f32's range once the
+    # source noise is zeroed; HiFi-GAN's tanh input peaks ~40x above tanh's
+    # linear range, so the unsaturated samples carry the input's absolute
+    # error against an output peak of 1
+    gain = 0.1 if jcfg.model_params.decoder.type == "istftnet" else 0.01
+    params["decoder"]["params"]["generator"]["conv_post"]["g"] *= gain
     return models, params
 
 
@@ -76,8 +104,9 @@ def port_models(jcfg, jparams):
     from styletts2_tpu_torch.convert import state_dict_from_jax
     from styletts2_tpu_torch.models.build import build_models
 
-    models = build_models(port_cfg(jcfg))
-    models.load_state_dict(state_dict_from_jax(jparams))
+    pcfg = port_cfg(jcfg)
+    models = build_models(pcfg)
+    models.load_state_dict(state_dict_from_jax(jparams, pcfg))
     return models.requires_grad_(False).eval()
 
 
@@ -152,3 +181,38 @@ def stable_har_phase():
     finally:
         jdi.stft_magphase, pdi.stft_magphase = orig_j, orig_p
 
+
+
+@contextmanager
+def zero_sines():
+    """Zero the NSF source's harmonic sines on both sides; its voicing mask
+    and noise stay (`zero_noise` zeroes the noise).
+
+    The sine phase is a cumulative sum that reaches ~1e5 rad over a few
+    seconds of audio, where one f32 ulp is ~1e-2 rad; the two frameworks sum
+    it in another order, and HiFi-GAN feeds the raw source into every stage,
+    so a random-init decoder turns that into O(1e-2) of its peak. The source
+    itself is compared on its own (test_torch_decoder.py::test_nsf_source)."""
+    from flax import linen as nn
+
+    import styletts2_tpu.models.decoder_istft as jdi
+    import styletts2_tpu_torch.models.decoder_istft as pdi
+
+    orig_j, orig_p = jdi.SineGen, pdi.SineGen.forward
+
+    class JaxNoSines(orig_j):
+        @nn.compact
+        def __call__(self, f0):
+            f0 = f0.astype(jnp.float32)
+            uv = (f0 > self.voiced_threshold).astype(f0.dtype)
+            return jnp.zeros(f0.shape[:2] + (self.harmonic_num + 1,), f0.dtype), uv
+
+    def port_no_sines(self, f0, generator=None):
+        uv = (f0 > self.voiced_threshold).float()
+        return torch.zeros(f0.shape[:2] + (self.dim,), device=f0.device), uv
+
+    jdi.SineGen, pdi.SineGen.forward = JaxNoSines, port_no_sines
+    try:
+        yield
+    finally:
+        jdi.SineGen, pdi.SineGen.forward = orig_j, orig_p

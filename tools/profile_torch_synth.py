@@ -1,9 +1,12 @@
 """Latency and device-time breakdown of the PyTorch port's synthesis on one GPU.
 
-    python3 tools/profile_torch_synth.py [--repeats 10] [--trace synth_trace.json]
+    python3 tools/profile_torch_synth.py [--config ljspeech|libritts] [--repeats 10]
+        [--trace synth_trace.json]
 
-Full-width Config(), seeded random weights, the requests of chip_smoke.py
-with the speed pinned to ~8 s for the first. For each request: warm-up
+Full-width Config() (LJSpeech, iSTFTNet) or libritts_config() (multispeaker,
+HiFi-GAN, with the style of chip_smoke.py's seeded voice), seeded random
+weights, the requests of chip_smoke.py with the speed pinned to ~8 s for
+the first. For each request: warm-up
 calls at its shapes, then the median, min and max host latency of
 `--repeats` calls (each ends in a device sync: the waveform is copied to
 the host). Then one torch.profiler trace of the first request: kernel
@@ -27,8 +30,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import BENCH_TEXT, REQUESTS, TARGET_AUDIO_SEC  # noqa: E402
-from styletts2_tpu_torch.config import Config  # noqa: E402
+from chip_smoke import BENCH_TEXT, REQUESTS, TARGET_AUDIO_SEC, _voice  # noqa: E402
+from styletts2_tpu_torch.config import Config, libritts_config  # noqa: E402
 from styletts2_tpu_torch.inference import Synthesizer  # noqa: E402
 
 STAGES = ("text", "style", "duration", "prosody", "decode")
@@ -36,6 +39,7 @@ STAGES = ("text", "style", "duration", "prosody", "decode")
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--config", choices=("ljspeech", "libritts"), default="ljspeech")
     ap.add_argument("--repeats", type=int, default=10)
     ap.add_argument("--trace", help="where to keep the Chrome trace")
     args = ap.parse_args()
@@ -46,26 +50,32 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
-    syn = Synthesizer(Config(), seed=0, device="cuda")
-    speed = max(len(syn.synthesize(BENCH_TEXT).wav) / 24000.0 / TARGET_AUDIO_SEC, 1.0)
+    if args.config == "libritts":
+        syn = Synthesizer(libritts_config(), seed=0, device="cuda")
+        kw = {"ref_s": syn.compute_style(_voice())}
+    else:
+        syn = Synthesizer(Config(), seed=0, device="cuda")
+        kw = {}
+    speed = max(len(syn.synthesize(BENCH_TEXT, **kw).wav) / 24000.0 / TARGET_AUDIO_SEC, 1.0)
     for i, (text, seed) in enumerate(REQUESTS):
         for _ in range(3):
-            syn.synthesize(text, seed=seed, speed=speed)
+            syn.synthesize(text, seed=seed, speed=speed, **kw)
         lat = []
         for _ in range(args.repeats):
             t0 = time.perf_counter()
-            r = syn.synthesize(text, seed=seed, speed=speed)
+            r = syn.synthesize(text, seed=seed, speed=speed, **kw)
             lat.append(time.perf_counter() - t0)
         audio = len(r.wav) / 24000.0
         med = float(np.median(lat))
-        print(json.dumps({"request": i, "audio_s": audio, "frames": int(r.pred_dur.sum()),
+        print(json.dumps({"config": args.config, "request": i, "audio_s": audio,
+                          "frames": int(r.pred_dur.sum()),
                           "latency_ms_median": med * 1e3, "latency_ms_min": min(lat) * 1e3,
                           "latency_ms_max": max(lat) * 1e3, "rtf": audio / med, "device": smi}))
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        syn.synthesize(BENCH_TEXT, seed=0, speed=speed)
+        syn.synthesize(BENCH_TEXT, seed=0, speed=speed, **kw)
         wall_us = (time.perf_counter() - t0) * 1e6
     print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=25))
     with tempfile.TemporaryDirectory() as tmp:
@@ -73,7 +83,7 @@ def main():
         trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace))
         breakdown = stage_breakdown(trace)
-    print(json.dumps({"wall_ms": wall_us / 1e3, **breakdown, "device": smi}))
+    print(json.dumps({"config": args.config, "wall_ms": wall_us / 1e3, **breakdown, "device": smi}))
 
 
 def stage_breakdown(trace: Path) -> dict:
