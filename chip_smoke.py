@@ -29,12 +29,27 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
   8. LibriTTS references: a request and an inference_batch of 3 texts on the
      card agree with the CPU, random draws from the host, the harmonic sines
      zeroed and the Generator's head kept out of tanh's saturation
+  9. backward kernel: the fused op's backward kernel against its plain
+     version (`adain_snake_bwd_ref`) and against autograd through
+     `adain_snake_ref`, at the stage-1 training shapes (batch 16, a 200-frame
+     clip), an odd small shape and bf16; CUDA-event times of both
+ 10. stage-1 training: `train.run.run_stage("first", Config(), ...)` on a
+     seeded fixture of 32 utterances of 6-9 s at full width, batch 16,
+     max_len 400, TMA from epoch 1 of 2: 2 pre-TMA and 2 TMA steps, each
+     with finite losses and 48 forward and 48 backward kernel launches, 0
+     plain-version calls; step times, peak memory, the decoder's change; a
+     second call resumes from the epoch-2 checkpoint and takes one more step
+ 11. training reference: one stage-1 step at reduced width, the same weights
+     on the card and on the CPU (eval mode, draws from the host, the source's
+     STFT phase zeroed), before TMA on the soft alignment and from TMA on the
+     monotonic one: the losses and every stepped module's gradient agree
 Every number line carries the card's name and power limit. Then a JSON line
 of the kernels and, last, {"ok": true, "device": {...}}.
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero before printing a result.
 """
 
+import copy
 import io
 import json
 import subprocess
@@ -44,6 +59,7 @@ import threading
 import time
 import urllib.request
 import wave
+import types
 from pathlib import Path
 
 import numpy as np
@@ -78,8 +94,23 @@ KERNEL_CASES = [  # (B, C, T), dtype name
     ((3, 256, 128), "float32"),
     ((2, 256, 160), "bfloat16"),
     ((2, 100, 37), "float32"),  # odd T below 64
+    ((16, 256, 4000), "float32"),  # stage-1 training: batch 16, a 200-frame clip
+    ((16, 128, 24001), "float32"),
+]
+BWD_CASES = [  # the training shapes, an odd small shape and bf16
+    ((16, 256, 4000), "float32"),
+    ((16, 128, 24001), "float32"),
+    ((2, 100, 37), "float32"),
+    ((2, 256, 160), "bfloat16"),
 ]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TRAIN_TEXTS = [BENCH_TEXT] + SERVE_TEXTS
+CALLS_PER_STEP = 48  # forward and backward launches per stage-1 generator step
+SMALL = {"max_len": 80, "model_params": {  # the reduced width of phase 11
+    "hidden_dim": 64, "style_dim": 32, "dim_in": 16,
+    "decoder": {"upsample_initial_channel": 64, "resblock_kernel_sizes": [3],
+                "resblock_dilation_sizes": [[1, 3]]}}}
+GRAD_TOL = 3e-2  # L2 of the gradient difference over its norm, per module
 REPO = Path(__file__).resolve().parent
 
 
@@ -122,7 +153,8 @@ def _host_draws(fn, *args, **kwargs):
         return torch.zeros(f0.shape[:2] + (self.dim,), device=f0.device), uv
 
     torch.rand, torch.randn, pdi.stft_magphase = draw(rand), draw(randn), zero_phase
-    pdi.SineGen.forward = zero_sines if getattr(fn.__self__, "hifigan", False) else sines
+    hifigan = getattr(getattr(fn, "__self__", None), "hifigan", False)
+    pdi.SineGen.forward = zero_sines if hifigan else sines
     try:
         return fn(*args, **kwargs)
     finally:
@@ -206,11 +238,262 @@ def _voice(seconds=3.0, sr=24000):
     return wav.astype(np.float32)
 
 
+def _utterance(rng, seconds, sr=24000):
+    """A seeded utterance in the style of `_voice`: a gliding pitch of its own
+    with 5 harmonics, plus noise."""
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = rng.uniform(100.0, 220.0) + 30.0 * np.sin(2 * np.pi * rng.uniform(0.3, 1.0) * t)
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    wav = sum(0.3 / k * np.sin(k * phase) for k in range(1, 6)) + 0.02 * rng.standard_normal(t.size)
+    return wav.astype(np.float32)
+
+
+def training_fixture(root: Path, n: int = 32):
+    """n seeded 24 kHz WAVs of 6-9 s (so that every batch reaches the full
+    clip of 200 half-frames) with the smoke's sentences as their text, and
+    train (all), val (the first 16) and OOD lists; returns the DataParams."""
+    from styletts2_tpu_torch.config import DataParams
+
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    lines = []
+    for i in range(n):
+        pcm = (np.clip(_utterance(rng, rng.uniform(6.0, 9.0)), -1, 1) * 32767).astype(np.int16)
+        with wave.open(str(root / f"u{i:02d}.wav"), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(24000)
+            f.writeframes(pcm.tobytes())
+        lines.append(f"u{i:02d}.wav|{TRAIN_TEXTS[i % len(TRAIN_TEXTS)]}|0")
+    (root / "train.txt").write_text("\n".join(lines))
+    (root / "val.txt").write_text("\n".join(lines[:16]))
+    (root / "ood.txt").write_text("\n".join(TRAIN_TEXTS))
+    return DataParams(train_data=str(root / "train.txt"), val_data=str(root / "val.txt"),
+                      root_path=str(root), OOD_data=str(root / "ood.txt"))
+
+
+def _close(got, want, dtype):
+    """assert_close at the dtype's tolerance, absolute part relative to the peak."""
+    tol = TOL[str(dtype).split(".")[-1]]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                               atol=tol * float(want.float().abs().max()))
+
+
+def _stage1_grads(models, cfg, device, batch, starts, use_mono, tma):
+    """One stage-1 generator loss and its backward, eval mode: (the losses,
+    {stepped module: its flattened gradient on the host}). The LSTMs alone
+    run in train mode, which cuDNN needs for their backward and which
+    changes nothing else (they have no dropout)."""
+    from styletts2_tpu_torch import losses as L
+    from styletts2_tpu_torch.train.stage1 import GEN_KEYS, Stage1Trainer
+    from styletts2_tpu_torch.train.state import TrainState
+
+    keys = GEN_KEYS + (("text_aligner",) if tma else ())
+    for k, m in models.items():
+        m.eval().requires_grad_(k in keys)
+        m.zero_grad(set_to_none=True)
+        for lstm in m.modules():
+            if isinstance(lstm, torch.nn.LSTM):
+                lstm.train()
+    trainer = Stage1Trainer(cfg, TrainState(models, {}), device)
+    tensors = trainer._tensors(batch)
+    clip = 40
+    y, w, aux = trainer.forward_recon(*tensors, starts, starts, clip, bool(use_mono))
+    g_loss, metrics = trainer.generator_losses(y, w, aux, tensors[1], tensors[2], tma)
+    if tma:
+        metrics["gen"] = L.generator_adv_loss(models["mpd"](w, y), models["msd"](w, y))
+        g_loss = g_loss + cfg.loss_params.lambda_gen * metrics["gen"]
+    g_loss.backward()
+    losses = {k: float(v.detach()) for k, v in metrics.items()}
+    losses["g_loss"] = float(g_loss.detach())
+    grads = {k: torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).detach().flatten()
+                           for p in models[k].parameters()]).cpu() for k in keys}
+    return losses, grads
+
+
 def _post(port, obj):
     req = urllib.request.Request(f"http://127.0.0.1:{port}/tts", data=json.dumps(obj).encode(),
                                  headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=300) as resp:
         return resp.status, resp.headers.get("Content-Type"), resp.read()
+
+
+def backward_phase(op, dev, smi):
+    """Phase 9: the backward kernel against its plain version and autograd
+    through the forward's plain version; CUDA-event times at the training
+    shapes. Returns (dx's max abs error over the f32 cases, {shape: (kernel
+    ms, plain ms)})."""
+    g = torch.Generator(dev).manual_seed(1)
+    bwd_err, bwd_timings = 0.0, {}
+    for (B, C, T), dt in BWD_CASES:
+        dtype = getattr(torch, dt)
+        x = (torch.randn((B, C, T), generator=g, device=dev) * 2 + 0.5).to(dtype)
+        gamma = torch.randn((B, C), generator=g, device=dev) * 0.1
+        beta = torch.randn((B, C), generator=g, device=dev) * 0.1
+        alpha = torch.rand((C,), generator=g, device=dev) + 0.5
+        dy = torch.randn((B, C, T), generator=g, device=dev).to(dtype)
+        got = op.adain_snake_bwd(x, gamma, beta, alpha, dy)
+        torch.cuda.synchronize()
+        plain = op.adain_snake_bwd_ref(x, gamma, beta, alpha, dy)
+        leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta, alpha)]
+        auto = torch.autograd.grad(op.adain_snake_ref(*leaves), leaves, dy)
+        errs = []
+        for k, p, a in zip(got, plain, auto):
+            if k.dtype != p.dtype or k.shape != p.shape:
+                raise RuntimeError(f"backward kernel: {k.dtype} {tuple(k.shape)} vs {p.dtype} "
+                                   f"{tuple(p.shape)}")
+            _close(k, p, k.dtype)
+            _close(k, a, k.dtype)
+            errs.append(float((k.float() - p.float()).abs().max() / p.float().abs().max()))
+        line = (f"[9 backward] ({B},{C},{T}) {dt}: rel err vs plain dx {errs[0]:.2e}, dgamma "
+                f"{errs[1]:.2e}, dbeta {errs[2]:.2e}, dalpha {errs[3]:.2e}; dx max abs err "
+                f"{float((got[0].float() - plain[0].float()).abs().max()):.3e} (tol {TOL[dt]:g} "
+                "of each peak, and against autograd)")
+        if dt == "float32":
+            bwd_err = max(bwd_err, float((got[0] - plain[0]).abs().max()))
+        if B == 16:  # the training shapes
+            run_k = lambda: op.adain_snake_bwd(x, gamma, beta, alpha, dy)  # noqa: E731
+            run_p = lambda: op.adain_snake_bwd_ref(x, gamma, beta, alpha, dy)  # noqa: E731
+            p1, k1, k2, p2 = (_ms(f, 20, 3) for f in (run_p, run_k, run_k, run_p))
+            bwd_timings[(B, C, T)] = ((k1 + k2) / 2, (p1 + p2) / 2)
+            line += f"; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms [{smi}]"
+        print(line, flush=True)
+        del x, dy, got, plain, auto, leaves
+    torch.cuda.empty_cache()
+    return bwd_err, bwd_timings
+
+
+def training_phase(op, build_dir, smi):
+    """Phase 10: stage-1 training at full width through `run_stage`, then a
+    resumed call. Returns the forward and backward kernel launches of both
+    calls."""
+    from styletts2_tpu_torch.config import Config
+    from styletts2_tpu_torch.train import run as train_run
+    from styletts2_tpu_torch.train.stage1 import Stage1Trainer
+
+    with tempfile.TemporaryDirectory(dir=build_dir) as tdir:
+        cfg = Config()
+        cfg.data_params = training_fixture(Path(tdir) / "data")
+        cfg.log_dir = str(Path(tdir) / "logs")
+        cfg.loss_params.TMA_epoch, cfg.epochs_1st, cfg.log_interval = 1, 2, 1
+        steps, before = [], {}
+        train_step, plain_fwd, plain_bwd = (Stage1Trainer.train_step, op.adain_snake_ref,
+                                            op.adain_snake_bwd_ref)
+        plain_calls = [0]
+
+        def counted(fn):
+            def call(*a, **k):
+                plain_calls[0] += 1
+                return fn(*a, **k)
+            return call
+
+        def timed_step(self, batch, epoch, rng):
+            if not before:
+                before.update({n: p.detach().clone() for n, p in
+                               self.models["decoder"].named_parameters()})
+            k1, k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
+            t0 = time.perf_counter()
+            m = train_step(self, batch, epoch, rng)  # ends in a host sync (the metrics)
+            steps.append({"epoch": epoch, "ms": (time.perf_counter() - t0) * 1e3, "metrics": m,
+                          "k1": op.adain_snake.launches - k1, "k2": op.adain_snake.bwd_launches - k2})
+            return m
+
+        Stage1Trainer.train_step = timed_step
+        op.adain_snake_ref, op.adain_snake_bwd_ref = counted(plain_fwd), counted(plain_bwd)
+        torch.cuda.reset_peak_memory_stats()
+        op.adain_snake.launches = op.adain_snake.bwd_launches = 0
+        try:
+            t0 = time.perf_counter()
+            state = train_run.run_stage("first", cfg, device="cuda")
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            dec_delta = float(torch.sqrt(sum(((p.detach() - before[n]) ** 2).sum() for n, p in
+                                              state.models["decoder"].named_parameters())))
+            dec_norm = float(torch.sqrt(sum((v ** 2).sum() for v in before.values())))
+            n_params = sum(p.numel() for p in state.models.parameters())
+            first_steps, first_epoch = len(steps), state.epoch
+            del state
+            torch.cuda.empty_cache()
+            cfg.epochs_1st = 3  # the second call resumes from epoch_1st_00002.pth
+            state = train_run.run_stage("first", cfg, max_steps=1, device="cuda")
+            resumed = (state.step, state.epoch)
+            del state
+        finally:
+            Stage1Trainer.train_step = train_step
+            op.adain_snake_ref, op.adain_snake_bwd_ref = plain_fwd, plain_bwd
+        train_k1, train_k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
+        log = (Path(cfg.log_dir) / "train.log").read_text()
+        written = sorted(p.name for p in Path(cfg.log_dir).iterdir())
+        evals = [json.loads(x) for x in (Path(cfg.log_dir) / "metrics.jsonl").read_text().splitlines()
+                 if "eval/mel" in x]
+    torch.cuda.empty_cache()
+    for i, st in enumerate(steps):
+        m = st["metrics"]
+        if m is None or not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"training step {i}: metrics {m}")
+        if (st["k1"], st["k2"]) != (CALLS_PER_STEP, CALLS_PER_STEP):
+            raise RuntimeError(f"training step {i}: {st['k1']} forward and {st['k2']} backward "
+                               f"kernel launches, not {CALLS_PER_STEP} each")
+        phase = "TMA" if st["epoch"] >= cfg.loss_params.TMA_epoch else "pre-TMA"
+        print(f"[10 training] step {i} (epoch {st['epoch']}, {phase}): {st['ms']:.1f} ms; launches "
+              f"K1 {st['k1']} K2 {st['k2']}; " + " ".join(f"{k}={v:.4f}" for k, v in m.items())
+              + f" [{smi}]", flush=True)
+    pre = [st["ms"] for st in steps[:first_steps] if st["epoch"] < cfg.loss_params.TMA_epoch]
+    tma = [st["ms"] for st in steps[:first_steps] if st["epoch"] >= cfg.loss_params.TMA_epoch]
+    if len(pre) < 2 or len(tma) < 2 or first_epoch != 2:
+        raise RuntimeError(f"training: {len(pre)} pre-TMA and {len(tma)} TMA steps, epoch {first_epoch}")
+    if plain_calls[0] or train_k1 != CALLS_PER_STEP * len(steps) + 48 * len(evals) or \
+            train_k2 != CALLS_PER_STEP * len(steps):
+        raise RuntimeError(f"training: {train_k1} forward / {train_k2} backward launches for "
+                           f"{len(steps)} steps and {len(evals)} validations, {plain_calls[0]} plain calls")
+    if not (np.isfinite(dec_delta) and dec_delta > 0):
+        raise RuntimeError(f"training: the decoder moved by {dec_delta}")
+    resume = [x for x in log.splitlines() if "auto-resuming from" in x]
+    if not resume or "epoch_1st_00002.pth (epoch 2)" not in resume[-1] or \
+            resumed != (first_steps + 1, 3) or "first_stage.pth" not in written:
+        raise RuntimeError(f"training resume: {resume}, (step, epoch) {resumed}, files {written}")
+    val_mel = ", ".join(f"{e['eval/mel']:.4f}" for e in evals)
+    print(f"[10 training] run_stage('first', Config()): {n_params} parameters, batch {cfg.batch_size}, "
+          f"max_len {cfg.max_len}; {len(pre)} pre-TMA steps {', '.join(f'{t:.1f}' for t in pre)} ms, "
+          f"{len(tma)} TMA steps {', '.join(f'{t:.1f}' for t in tma)} ms; validation mel "
+          f"{val_mel}; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB; the decoder moved {dec_delta:.4e} (norm {dec_norm:.4e}); "
+          f"launches K1 {train_k1} K2 {train_k2} ({CALLS_PER_STEP} each per step, K1 48 per "
+          f"validation), 0 plain-version calls; wall {wall:.1f} s [{smi}]", flush=True)
+    print(f"[10 training] {resume[-1].split(': ', 1)[-1]}; then 1 step to (step, epoch) {resumed}; "
+          f"files {written}", flush=True)
+    return train_k1, train_k2
+
+
+def training_reference_phase(dev):
+    """Phase 11: one stage-1 step at reduced width, the same weights on the
+    card and on the CPU."""
+    from styletts2_tpu_torch.config import Config
+    from styletts2_tpu_torch.models.build import build_training_models
+
+    small = Config.from_dict(SMALL)
+    cpu_models = build_training_models(small, torch.Generator().manual_seed(0))
+    gpu_models = copy.deepcopy(cpu_models).to(dev)
+    rng = np.random.default_rng(2)
+    batch = types.SimpleNamespace(
+        waves=(0.2 * rng.standard_normal((2, 48000))).astype(np.float32),
+        tokens=rng.integers(1, 178, (2, 12)).astype(np.int32),
+        input_lengths=np.asarray([12, 9]), mel_lengths=np.asarray([160, 140]))
+    starts = np.asarray([3, 5])
+    for use_mono, tma in ((0, False), (1, True)):
+        got_l, got_g = _host_draws(_stage1_grads, gpu_models, small, dev, batch, starts, use_mono, tma)
+        want_l, want_g = _host_draws(_stage1_grads, cpu_models, small, "cpu", batch, starts,
+                                     use_mono, tma)
+        l_err = max(abs(got_l[k] - v) / abs(v) for k, v in want_l.items())
+        g_err = {k: float((got_g[k] - v).norm() / v.norm()) for k, v in want_g.items()}
+        print(f"[11 training reference] {'TMA' if tma else 'pre-TMA'}, use_mono {use_mono}: losses "
+              + " ".join(f"{k}={v:.5f}" for k, v in got_l.items())
+              + f"; rel err {l_err:.2e} (tol 1e-4); gradient L2 rel err "
+              + ", ".join(f"{k} {e:.2e}" for k, e in g_err.items()) + f" (tol {GRAD_TOL:g})",
+              flush=True)
+        if not (l_err < 1e-4 and max(g_err.values()) < GRAD_TOL):
+            raise RuntimeError("stage-1 step: GPU and CPU disagree")
+    del cpu_models, gpu_models
 
 
 def main():
@@ -259,7 +542,7 @@ def main():
         line = f"[3 kernel] ({B},{C},{T}) {dt}: max_abs_err {err:.3e} (tol {TOL[dt]:g})"
         if dt == "float32":
             max_err = max(max_err, err)
-        if T >= 6400:  # the main paths' shapes
+        if T >= 4000:  # the main paths' shapes
             iters = 200 if x.numel() < 10 ** 7 else 50
             with torch.inference_mode():
                 run_k = lambda: op.adain_snake(x, gamma, beta, alpha)  # noqa: E731
@@ -435,13 +718,24 @@ def main():
     if max(errs) >= 1e-3:
         raise RuntimeError("inference_batch: GPU and CPU disagree")
 
+    del ms, ms_cpu
+    bwd_err, bwd_timings = backward_phase(op, dev, smi)  # 9
+    train_k1, train_k2 = training_phase(op, build_dir, smi)  # 10
+    training_reference_phase(dev)  # 11
+
     k_ms, p_ms = timings[(8, 32, 192000)]  # the largest shape
+    bk_ms, bp_ms = bwd_timings[(16, 128, 24001)]
     print(json.dumps({"kernels": [{
         "name": "adain_snake", "route": "cuda",
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:38",
-        "launches": lj.launches + lt.launches + sv.launches, "max_abs_err": max_err,
+        "launches": lj.launches + lt.launches + sv.launches + train_k1, "max_abs_err": max_err,
         "ms": k_ms, "plain_ms": p_ms,
+    }, {
+        "name": "adain_snake_bwd", "route": "cuda",
+        "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
+        "replaces": "styletts2_tpu/ops/pallas_kernels.py:117",
+        "launches": train_k2, "max_abs_err": bwd_err, "ms": bk_ms, "plain_ms": bp_ms,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""The configuration fields the synthesis path reads.
+"""The configuration fields the synthesis path and the stage-1 trainer read.
 
 `Config()` equals `configs/config.yml` (single-speaker LJSpeech, iSTFTNet
 decoder) and `libritts_config()` equals `configs/config_libritts.yml`
@@ -49,16 +49,79 @@ class DiffusionParams:
 
 
 @dataclass
+class SLMParams:
+    """The frozen speech LM of the WavLM feature loss (WavLM base plus)."""
+
+    model: str = "microsoft/wavlm-base-plus"
+    sr: int = 16000
+    hidden: int = 768
+    nlayers: int = 13
+    initial_channel: int = 64
+
+
+@dataclass
 class ModelParams:
     multispeaker: bool = False
     dim_in: int = 64  # the style encoders' first width
     hidden_dim: int = 512  # also the style encoders' widest (as the reference builds them)
     n_layer: int = 3
+    n_mels: int = 80  # the aligner's and pitch extractor's mel input
     n_token: int = 178
     max_dur: int = 50
     style_dim: int = 128
+    dropout: float = 0.2  # the text encoder's dropout in training
     decoder: DecoderParams = field(default_factory=DecoderParams)
+    slm: SLMParams = field(default_factory=SLMParams)
     diffusion: DiffusionParams = field(default_factory=DiffusionParams)
+
+
+@dataclass
+class DataParams:
+    """`path|phonemes|speaker` file lists, relative to `root_path`."""
+
+    train_data: str = "Data/train_list.txt"
+    val_data: str = "Data/val_list.txt"
+    root_path: str = ""
+    OOD_data: str = "Data/OOD_texts.txt"
+    min_length: int = 50
+
+
+@dataclass
+class SpectParams:
+    n_fft: int = 2048
+    win_length: int = 1200
+    hop_length: int = 300
+
+
+@dataclass
+class PreprocessParams:
+    sr: int = 24000
+    spect_params: SpectParams = field(default_factory=SpectParams)
+
+
+@dataclass
+class LossParams:
+    lambda_mel: float = 5.0
+    lambda_gen: float = 1.0
+    lambda_slm: float = 1.0
+    lambda_mono: float = 1.0
+    lambda_s2s: float = 1.0
+    TMA_epoch: int = 50  # from this epoch on: aligner losses, GAN and WavLM terms
+    lambda_F0: float = 1.0
+    lambda_norm: float = 1.0
+    lambda_dur: float = 1.0
+    lambda_ce: float = 20.0
+    lambda_sty: float = 1.0
+    lambda_diff: float = 1.0
+    diff_epoch: int = 20
+    joint_epoch: int = 50
+
+
+@dataclass
+class OptimizerParams:
+    lr: float = 1e-4
+    bert_lr: float = 1e-5
+    ft_lr: float = 1e-5
 
 
 @dataclass
@@ -76,7 +139,25 @@ class PLBERTParams:
 
 @dataclass
 class Config:
+    log_dir: str = "Models/LJSpeech"
+    first_stage_path: str = "first_stage.pth"
+    save_freq: int = 2
+    log_interval: int = 10
+    epochs_1st: int = 200
+    batch_size: int = 16
+    max_len: int = 400  # mel frames of a training clip
+    # the static clip bucket and floor, in mel-half frames (the JAX
+    # package's `clip_frame_bucket`): clip = max(40, floor_40(min(half - 1,
+    # max_len // 2)))
+    clip_frame_bucket: int = 40
+    F0_path: str = "Utils/JDC/bst.t7"
+    ASR_path: str = "Utils/ASR/epoch_00080.pth"
+    PLBERT_dir: str = "Utils/PLBERT/"
+    data_params: DataParams = field(default_factory=DataParams)
+    preprocess_params: PreprocessParams = field(default_factory=PreprocessParams)
     model_params: ModelParams = field(default_factory=ModelParams)
+    loss_params: LossParams = field(default_factory=LossParams)
+    optimizer_params: OptimizerParams = field(default_factory=OptimizerParams)
     plbert_params: PLBERTParams = field(default_factory=PLBERTParams)
 
     @classmethod
@@ -99,12 +180,16 @@ def _from_dict(cls, d: Dict[str, Any]):
 
 def libritts_config() -> Config:
     """`configs/config_libritts.yml`: multispeaker, HiFi-GAN decoder at rates
-    10, 5, 3, 2."""
-    return Config(model_params=ModelParams(
-        multispeaker=True,
-        decoder=DecoderParams(type="hifigan", upsample_rates=[10, 5, 3, 2],
-                              upsample_kernel_sizes=[20, 10, 6, 4]),
-    ))
+    10, 5, 3, 2, and LibriTTS's training schedule."""
+    return Config(
+        log_dir="Models/LibriTTS", epochs_1st=50, max_len=300,
+        model_params=ModelParams(
+            multispeaker=True,
+            decoder=DecoderParams(type="hifigan", upsample_rates=[10, 5, 3, 2],
+                                  upsample_kernel_sizes=[20, 10, 6, 4]),
+        ),
+        loss_params=LossParams(TMA_epoch=5, diff_epoch=10, joint_epoch=30),
+    )
 
 
 def load_config(path: str) -> Config:

@@ -13,11 +13,16 @@ layout of `build_models(cfg).state_dict()`. It is the exact inverse of
   a spectral-norm Conv2d kernel (kh, kw, in, out) -> weight_orig
   (out, in, kh, kw), u -> weight_u, and v from (kh, kw, in) to torch's
   (in, kh, kw) flattening -> weight_v.
+The stage-1 modules (`build.build_training_models`) convert as the exact
+inverse of `convert_asr`, `convert_jdc` (BatchNorm running statistics
+included; num_batches_tracked 0), `convert_mpd`, `convert_msd` and
+`convert_wavlm` (the scanned layers 1..N-1 unstacked; the positional conv's
+folded weight as the plain `weight`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -212,6 +217,128 @@ def _diffusion(p, sd):
     sd["to_out.1.bias"] = _np(p["to_out"]["bias"])
 
 
+def _gn(p, sd, name):
+    _ln(p, sd, name)  # GroupNorm and LayerNorm keep scale/bias alike
+
+
+def _asr(p, sd):
+    _conv1d(p["init_cnn"], sd, "init_cnn.conv")
+    for i in range(_count(p, "cnns_")):
+        blk = p[f"cnns_{i}"]
+        for j in range(_count(blk, "gn")):
+            base = f"cnns.{i}.0.blocks.{j}"
+            _conv1d(blk[f"c{j}_1"], sd, f"{base}.0.conv")
+            _gn(blk[f"gn{j}"], sd, f"{base}.2")
+            _conv1d(blk[f"c{j}_2"], sd, f"{base}.4.conv")
+        _gn(p[f"cnn_norms_{i}"], sd, f"cnns.{i}.1")
+    _conv1d(p["projection"], sd, "projection.conv")
+    _lin(p["ctc1"], sd, "ctc_linear.0.linear_layer")
+    _lin(p["ctc2"], sd, "ctc_linear.2.linear_layer")
+    q, b = p["asr_s2s"], "asr_s2s"
+    att = f"{b}.attention_layer"
+    sd[f"{b}.embedding.weight"] = _np(q["embedding"]["embedding"])
+    sd[f"{att}.memory_layer.linear_layer.weight"] = _np(q["memory_layer"]["kernel"]).T
+    sd[f"{att}.query_layer.linear_layer.weight"] = _np(q["query_layer"]).T
+    sd[f"{att}.v.linear_layer.weight"] = _np(q["v"]).T
+    sd[f"{att}.location_layer.location_conv.conv.weight"] = _np(q["location_conv"]).transpose(2, 1, 0)
+    sd[f"{att}.location_layer.location_dense.linear_layer.weight"] = _np(q["location_dense"]).T
+    sd[f"{b}.decoder_rnn.weight_ih"] = _np(q["W_ih"]).T
+    sd[f"{b}.decoder_rnn.weight_hh"] = _np(q["W_hh"]).T
+    sd[f"{b}.decoder_rnn.bias_ih"] = _np(q["b_cell"])
+    sd[f"{b}.decoder_rnn.bias_hh"] = np.zeros_like(_np(q["b_cell"]))
+    sd[f"{b}.project_to_hidden.0.linear_layer.weight"] = _np(q["project_to_hidden_w"]).T
+    sd[f"{b}.project_to_hidden.0.linear_layer.bias"] = _np(q["project_to_hidden_b"])
+    sd[f"{b}.project_to_n_symbols.weight"] = _np(q["project_to_n_symbols_w"]).T
+    sd[f"{b}.project_to_n_symbols.bias"] = _np(q["project_to_n_symbols_b"])
+
+
+def _conv2d(p, sd, name):
+    sd[f"{name}.weight"] = _np(p["kernel"]).transpose(3, 2, 0, 1)
+
+
+def _bn(p, stats, sd, name):
+    sd[f"{name}.weight"] = _np(p["scale"])
+    sd[f"{name}.bias"] = _np(p["bias"])
+    sd[f"{name}.running_mean"] = _np(stats["mean"])
+    sd[f"{name}.running_var"] = _np(stats["var"])
+    sd[f"{name}.num_batches_tracked"] = np.zeros((), np.int64)
+
+
+def _jdc(v, sd):
+    p, st = v["params"], v["batch_stats"]
+    _conv2d(p["conv0"], sd, "conv_block.0")
+    _bn(p["bn0"], st["bn0"], sd, "conv_block.1")
+    _conv2d(p["conv1"], sd, "conv_block.3")
+    for i in (1, 2, 3):
+        r, bp, bs = f"res_block{i}", p[f"res{i}"], st[f"res{i}"]
+        _bn(bp["pre_bn"], bs["pre_bn"], sd, f"{r}.pre_conv.0")
+        _conv2d(bp["conv1"], sd, f"{r}.conv.0")
+        _bn(bp["bn1"], bs["bn1"], sd, f"{r}.conv.1")
+        _conv2d(bp["conv2"], sd, f"{r}.conv.3")
+        if "conv1x1" in bp:
+            _conv2d(bp["conv1x1"], sd, f"{r}.conv1by1")
+    _bn(p["pool_bn"], st["pool_bn"], sd, "pool_block.0")
+    _bilstm(p["bilstm_classifier"], sd, "bilstm_classifier")
+    _lin(p["classifier"], sd, "classifier")
+
+
+def _wnconv2d(p, sd, name):
+    sd[f"{name}.weight_v"] = _np(p["v"]).transpose(3, 2, 0, 1)
+    sd[f"{name}.weight_g"] = _np(p["g"]).reshape(-1, 1, 1, 1)
+    sd[f"{name}.bias"] = _np(p["bias"])
+
+
+def _mpd(p, sd):
+    for i, key in enumerate(sorted(p, key=lambda k: int(k[1:]))):  # p2, p3, p5, ...
+        for j in range(_count(p[key], "conv_") - 1):  # conv_0..conv_4 and conv_post
+            _wnconv2d(p[key][f"conv_{j}"], sd, f"discriminators.{i}.convs.{j}")
+        _wnconv2d(p[key]["conv_post"], sd, f"discriminators.{i}.conv_post")
+
+
+def _msd(p, sd):
+    for i in range(_count(p, "r")):
+        for j in range(_count(p[f"r{i}"], "conv_")):
+            _wnconv2d(p[f"r{i}"][f"conv_{j}"], sd, f"discriminators.{i}.discriminators.{j}")
+        _wnconv2d(p[f"r{i}"]["out"], sd, f"discriminators.{i}.out")
+
+
+def _wavlm_layer(p, sd, base):
+    a = p["attention"]
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj", "gru_rel_pos_linear"):
+        _lin(a[name], sd, f"{base}.attention.{name}")
+    sd[f"{base}.attention.gru_rel_pos_const"] = _np(a["gru_rel_pos_const"])
+    if "rel_attn_embed" in a:
+        sd[f"{base}.attention.rel_attn_embed.weight"] = _np(a["rel_attn_embed"])
+    _ln(p["layer_norm"], sd, f"{base}.layer_norm")
+    _ln(p["final_layer_norm"], sd, f"{base}.final_layer_norm")
+    _lin(p["ff_in"], sd, f"{base}.feed_forward.intermediate_dense")
+    _lin(p["ff_out"], sd, f"{base}.feed_forward.output_dense")
+
+
+def _wavlm(p, sd):
+    fe = "feature_extractor.conv_layers"
+    for i in range(_count(p, "conv_") - 1):  # conv_0..conv_6 and conv_gn
+        sd[f"{fe}.{i}.conv.weight"] = _np(p[f"conv_{i}"]["kernel"]).transpose(2, 1, 0)
+    _ln(p["conv_gn"], sd, f"{fe}.0.layer_norm")
+    _ln(p["proj_ln"], sd, "feature_projection.layer_norm")
+    _lin(p["proj"], sd, "feature_projection.projection")
+    _conv1d(p["pos_conv"], sd, "encoder.pos_conv_embed.conv")
+    _ln(p["encoder_ln"], sd, "encoder.layer_norm")
+    _wavlm_layer(p["layer_0"], sd, "encoder.layers.0")
+    stacked = p.get("layers", {}).get("layer")
+    if stacked is not None:  # layers 1..N-1, stacked on a leading axis
+        n = len(np.asarray(stacked["ff_in"]["bias"]))
+        for i in range(n):
+            one = _tree_map(lambda x, i=i: np.asarray(x)[i], stacked)
+            _wavlm_layer(one, sd, f"encoder.layers.{i + 1}")
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def _params_only(fn):
     return lambda v, sd: fn(v["params"], sd)
 
@@ -225,13 +352,20 @@ _MODULES = {
     "diffusion": _params_only(_diffusion),
     "style_encoder": _style_encoder,
     "predictor_encoder": _style_encoder,
+    "text_aligner": _params_only(_asr),
+    "pitch_extractor": _jdc,
+    "mpd": _params_only(_mpd),
+    "msd": _params_only(_msd),
+    "wavlm": _params_only(_wavlm),
 }
 
 
-def state_dict_from_jax(params: Dict[str, Any], cfg: Config) -> Dict[str, torch.Tensor]:
-    """JAX variables of `cfg`'s modules -> the port's full state_dict."""
+def state_dict_from_jax(params: Dict[str, Any], cfg: Config,
+                        keys: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
+    """JAX variables of `keys` (by default `cfg`'s synthesis modules) -> the
+    port's state_dict of those modules."""
     out: Dict[str, torch.Tensor] = {}
-    for key in module_keys(cfg):
+    for key in keys or module_keys(cfg):
         sd: Dict[str, np.ndarray] = {}
         _MODULES[key](params[key], sd)
         for name, v in sd.items():

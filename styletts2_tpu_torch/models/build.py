@@ -1,4 +1,5 @@
-"""Assembly of the synthesis path's modules, with seeded random weights.
+"""Assembly of the synthesis path's and the stage-1 trainer's modules, with
+seeded random weights.
 
 `build_models(cfg, generator)` returns an `nn.ModuleDict` keyed like the
 reference checkpoint's `net` dict (`module_keys(cfg)`): text_encoder, bert,
@@ -19,15 +20,24 @@ from torch import nn
 
 from styletts2_tpu_torch.config import Config
 from styletts2_tpu_torch.models import decoder_hifigan, decoder_istft
+from styletts2_tpu_torch.models.asr import ASRCNN, init_asr_
 from styletts2_tpu_torch.models.diffusion.denoiser import LearnedPositionalEmbedding, Transformer1d
-from styletts2_tpu_torch.models.layers import SNConv2d, WNConv1d, WNConvTranspose1d
+from styletts2_tpu_torch.models.discriminators import (MultiPeriodDiscriminator,
+                                                       MultiResSpecDiscriminator, init_discriminator_)
+from styletts2_tpu_torch.models.jdc import JDCNet, init_jdc_
+from styletts2_tpu_torch.models.layers import (SNConv2d, WNConv1d, WNConvTranspose1d, lecun_normal_,
+                                               uniform_)
 from styletts2_tpu_torch.models.plbert import PLBERT, AlbertEmbeddings
 from styletts2_tpu_torch.models.predictor import ProsodyPredictor
 from styletts2_tpu_torch.models.style_encoder import StyleEncoder
 from styletts2_tpu_torch.models.text_encoder import TextEncoder
+from styletts2_tpu_torch.models.wavlm import WavLM, init_wavlm_
 
 BASE_MODULES = ("text_encoder", "bert", "bert_encoder", "predictor", "decoder", "diffusion")
 STYLE_MODULES = ("style_encoder", "predictor_encoder")
+TRAIN_MODULES = ("text_encoder", "style_encoder", "decoder", "text_aligner", "pitch_extractor",
+                 "mpd", "msd")
+FROZEN_MODULES = ("wavlm",)  # never stepped and never checkpointed
 
 
 class BertEncoder(nn.Linear):
@@ -40,11 +50,9 @@ def module_keys(cfg: Config) -> Tuple[str, ...]:
     return BASE_MODULES + (STYLE_MODULES if cfg.model_params.multispeaker else ())
 
 
-def build_models(cfg: Config, generator: Optional[torch.Generator] = None) -> nn.ModuleDict:
+def _decoder(cfg: Config) -> nn.Module:
     mp = cfg.model_params
     dec = mp.decoder
-    tr = mp.diffusion.transformer
-    pb = cfg.plbert_params
     common = dict(
         dim_in=mp.hidden_dim, style_dim=mp.style_dim,
         resblock_kernel_sizes=tuple(dec.resblock_kernel_sizes),
@@ -54,18 +62,33 @@ def build_models(cfg: Config, generator: Optional[torch.Generator] = None) -> nn
         upsample_kernel_sizes=tuple(dec.upsample_kernel_sizes),
     )
     if dec.type == "istftnet":
-        decoder = decoder_istft.Decoder(**common, gen_istft_n_fft=dec.gen_istft_n_fft,
-                                        gen_istft_hop_size=dec.gen_istft_hop_size)
-    elif dec.type == "hifigan":
-        decoder = decoder_hifigan.Decoder(**common)
-    else:
-        raise ValueError(f"unknown decoder type {dec.type!r}")
+        return decoder_istft.Decoder(**common, gen_istft_n_fft=dec.gen_istft_n_fft,
+                                     gen_istft_hop_size=dec.gen_istft_hop_size)
+    if dec.type == "hifigan":
+        return decoder_hifigan.Decoder(**common)
+    raise ValueError(f"unknown decoder type {dec.type!r}")
+
+
+def _text_encoder(cfg: Config) -> TextEncoder:
+    mp = cfg.model_params
+    return TextEncoder(mp.hidden_dim, 5, mp.n_layer, mp.n_token, dropout=mp.dropout)
+
+
+def _style_encoder(cfg: Config) -> StyleEncoder:
+    mp = cfg.model_params  # the reference builds it up to hidden_dim wide
+    return StyleEncoder(mp.dim_in, mp.style_dim, max_conv_dim=mp.hidden_dim)
+
+
+def build_models(cfg: Config, generator: Optional[torch.Generator] = None) -> nn.ModuleDict:
+    mp = cfg.model_params
+    tr = mp.diffusion.transformer
+    pb = cfg.plbert_params
     models = nn.ModuleDict({
-        "text_encoder": TextEncoder(mp.hidden_dim, 5, mp.n_layer, mp.n_token),
+        "text_encoder": _text_encoder(cfg),
         "bert": PLBERT(pb),
         "bert_encoder": BertEncoder(pb.hidden_size, mp.hidden_dim),
         "predictor": ProsodyPredictor(mp.style_dim, mp.hidden_dim, mp.n_layer, mp.max_dur),
-        "decoder": decoder,
+        "decoder": _decoder(cfg),
         "diffusion": Transformer1d(
             channels=mp.style_dim * 2, context_embedding_features=pb.hidden_size,
             num_layers=tr.num_layers, num_heads=tr.num_heads,
@@ -75,9 +98,34 @@ def build_models(cfg: Config, generator: Optional[torch.Generator] = None) -> nn
         ),
     })
     if mp.multispeaker:
-        for key in STYLE_MODULES:  # the reference builds them up to hidden_dim wide
-            models[key] = StyleEncoder(mp.dim_in, mp.style_dim, max_conv_dim=mp.hidden_dim)
+        for key in STYLE_MODULES:
+            models[key] = _style_encoder(cfg)
     _init_weights(models, generator)
+    return models
+
+
+def build_training_models(cfg: Config, generator: Optional[torch.Generator] = None
+                          ) -> nn.ModuleDict:
+    """The stage-1 trainer's modules, keyed like the reference checkpoint:
+    TRAIN_MODULES (text_encoder, style_encoder and decoder as synthesis
+    builds them; the ASR aligner text_aligner, the JDC pitch_extractor and
+    the mpd / msd discriminators, `styletts2_tpu/models/build.py:147-196`)
+    and the frozen `wavlm`, each with the JAX package's init distributions
+    drawn from `generator`."""
+    mp = cfg.model_params
+    models = nn.ModuleDict({"text_encoder": _text_encoder(cfg),
+                            "style_encoder": _style_encoder(cfg), "decoder": _decoder(cfg)})
+    _init_weights(models, generator)
+    extra = {
+        "text_aligner": (ASRCNN(input_dim=mp.n_mels, n_token=mp.n_token), init_asr_),
+        "pitch_extractor": (JDCNet(num_class=1), init_jdc_),
+        "mpd": (MultiPeriodDiscriminator(), init_discriminator_),
+        "msd": (MultiResSpecDiscriminator(), init_discriminator_),
+        "wavlm": (WavLM(), init_wavlm_),
+    }
+    for key, (mod, init) in extra.items():
+        init(mod, generator)
+        models[key] = mod
     return models
 
 
@@ -92,17 +140,14 @@ def _init_weights(root: nn.Module, generator: Optional[torch.Generator] = None) 
     scales and snake alphas keep their constructor values (ones / zeros)."""
     g = generator
 
-    def uniform_(t, bound):
-        t.copy_(torch.rand(t.shape, generator=g) * (2 * bound) - bound)
+    def uniform(t, bound):
+        uniform_(t, bound, g)
 
     def normal_(t, std):
         t.copy_(torch.randn(t.shape, generator=g) * std)
 
     def lecun_(mod):
-        std = 1.0 / math.sqrt(mod.weight[0].numel()) / 0.87962566103423978
-        w = torch.empty(mod.weight.shape)
-        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
-        mod.weight.copy_(w)
+        lecun_normal_(mod.weight, g)
         if mod.bias is not None:
             mod.bias.zero_()
 
@@ -116,23 +161,23 @@ def _init_weights(root: nn.Module, generator: Optional[torch.Generator] = None) 
             else:
                 fan_in = w.shape[1] * w.shape[2]
             bound = 1.0 / math.sqrt(fan_in)
-            uniform_(w, bound)
+            uniform(w, bound)
             if isinstance(mod, (WNConv1d, WNConvTranspose1d)):
                 mod.weight_g.fill_(1.0)
             if mod.bias is not None:
-                uniform_(mod.bias, bound)
+                uniform(mod.bias, bound)
         elif isinstance(mod, nn.LSTM):
             bound = 1.0 / math.sqrt(mod.hidden_size)
             for name, p in mod.named_parameters():
                 if name.startswith("bias_hh"):
                     p.zero_()  # the JAX LSTM has one bias, b_ih + b_hh
                 else:
-                    uniform_(p, bound)
+                    uniform(p, bound)
         elif isinstance(mod, SNConv2d):
             bound = 1.0 / math.sqrt(mod.weight_orig[0].numel())
-            uniform_(mod.weight_orig, bound)
+            uniform(mod.weight_orig, bound)
             if mod.bias is not None:
-                uniform_(mod.bias, bound)
+                uniform(mod.bias, bound)
             _align_spectral(mod, torch.randn(mod.weight_u.shape, generator=g))
         elif isinstance(mod, nn.Embedding):
             normal_(mod.weight, 1.0 / math.sqrt(mod.embedding_dim))

@@ -69,7 +69,7 @@ class Generator(nn.Module):
         # (B, L, 1) -> (B, 1, L) with NCW strides: the transposed view's strides
         # read as channels-last, and cuDNN would then return the noise convs'
         # outputs channels-last, which the fused kernel does not take
-        har_source = self.m_source(f0, generator)[0].reshape(f0.shape[0], 1, -1)
+        har_source = self.m_source(f0, generator)[0].reshape(f0.shape[0], 1, -1).detach()
         for i, up in enumerate(self.ups):
             x = snake(x, self.alphas[i])
             xs_src = self.noise_res[i](self.noise_convs[i](har_source), s)

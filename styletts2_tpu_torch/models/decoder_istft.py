@@ -1,11 +1,13 @@
-"""iSTFTNet decoder with the harmonic-plus-noise NSF source, inference only
+"""iSTFTNet decoder with the harmonic-plus-noise NSF source
 (`styletts2_tpu/models/decoder_istft.py`).
 
 NCW activations, f32. Every `AdaINResBlock1` runs its instance norm, style
 affine and snake through the fused `adain_snake` kernel: two calls per
 dilation, so a Generator with 8 such blocks of 3 dilations launches it 48
-times. The NSF source draws its initial phase and its additive noise from
-the `torch.Generator` the caller passes.
+times forward, and its backward kernel as often in training. The NSF source
+(no gradient, as in the JAX package) draws its initial phase and its
+additive noise, and the train-mode F0/N box smoothing its kernel widths,
+from the `torch.Generator` the caller passes.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from styletts2_tpu_torch.models.blocks import AdainResBlk1d
@@ -146,7 +149,7 @@ class Generator(nn.Module):
     def forward(self, x, s, f0_curve, generator=None):
         """x (B, C0, T_mel), s (B, style), f0_curve (B, T_mel) -> wav (B, T_mel * 300)."""
         f0 = upsample_nearest(f0_curve, self.total_up)[..., None]
-        har_source = self.m_source(f0, generator)[0][..., 0]
+        har_source = self.m_source(f0, generator)[0][..., 0].detach()
         har = torch.cat(stft_magphase(har_source, self.n_fft, self.hop, self.n_fft), dim=1)
         n_up = len(self.ups)
         for i in range(n_up):
@@ -167,12 +170,31 @@ class Generator(nn.Module):
                      self.n_fft, self.hop, self.n_fft)
 
 
+def box_smooth(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Box filter of width k over (B, T), zero padding k // 2 (JAX `_box_smooth`)."""
+    w = torch.full((1, 1, k), 1.0 / k, device=x.device, dtype=x.dtype)
+    return F.conv1d(x[:, None], w, padding=k // 2)[:, 0]
+
+
+F0_SMOOTH_WIDTHS = (0, 3, 7)  # train-mode choices; 0 leaves the curve as it is
+N_SMOOTH_WIDTHS = (0, 3, 7, 15)
+
+
+def random_box_smooth(x: torch.Tensor, widths, generator: Optional[torch.Generator] = None):
+    """`box_smooth` of x with a width drawn uniformly from `widths` by `generator`."""
+    dev = generator.device if generator is not None else x.device
+    k = widths[int(torch.randint(0, len(widths), (), generator=generator, device=dev))]
+    return box_smooth(x, k) if k else x
+
+
 class DecoderHead(nn.Module):
     """The AdaIN encode/decode head that drives a Generator, shared by the
     iSTFTNet and HiFi-GAN decoders; a subclass sets `self.generator`.
 
     asr (B, dim_in, T_en) text features; F0_curve, N (B, 2*T_en); s (B,
-    style_dim) -> the generator's waveform."""
+    style_dim) -> the generator's waveform. In train mode the F0 and N
+    curves are first box-smoothed, each with a width drawn uniformly from
+    F0_SMOOTH_WIDTHS / N_SMOOTH_WIDTHS (`decoder_istft.py:276-296`)."""
 
     def __init__(self, dim_in: int, style_dim: int, upsample_initial_channel: int,
                  bottleneck: int = 1024):
@@ -190,6 +212,9 @@ class DecoderHead(nn.Module):
         ])
 
     def forward(self, asr, f0_curve, n_curve, s, generator: Optional[torch.Generator] = None):
+        if self.training:
+            f0_curve = random_box_smooth(f0_curve, F0_SMOOTH_WIDTHS, generator)
+            n_curve = random_box_smooth(n_curve, N_SMOOTH_WIDTHS, generator)
         F0 = self.F0_conv(f0_curve[:, None])
         N = self.N_conv(n_curve[:, None])
         x = self.encode(torch.cat([asr, F0, N], dim=1), s)

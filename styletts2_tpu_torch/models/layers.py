@@ -9,6 +9,7 @@ rename-and-transpose.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -17,6 +18,22 @@ from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 LRELU_SLOPE_02 = 0.2
+
+
+@torch.no_grad()
+def lecun_normal_(w: torch.Tensor, generator: Optional[torch.Generator] = None) -> None:
+    """flax's lecun_normal: a normal truncated at 2 std, variance 1 / fan_in
+    (fan_in = every axis of a torch weight but the first)."""
+    std = 1.0 / math.sqrt(w[0].numel()) / 0.87962566103423978
+    t = torch.empty(w.shape)
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+    w.copy_(t)
+
+
+@torch.no_grad()
+def uniform_(w: torch.Tensor, bound: float, generator: Optional[torch.Generator] = None) -> None:
+    """U(-bound, bound)."""
+    w.copy_(torch.rand(w.shape, generator=generator) * (2 * bound) - bound)
 
 
 def leaky_relu(x: torch.Tensor, slope: float = LRELU_SLOPE_02) -> torch.Tensor:
@@ -72,12 +89,15 @@ class WNConvTranspose1d(nn.Module):
 
 
 class SNConv2d(nn.Module):
-    """Spectral-normalised Conv2d at inference, NCHW.
+    """Spectral-normalised Conv2d, NCHW (`styletts2_tpu/models/layers.py:199-268`).
 
     torch `spectral_norm`'s names: the parameter `weight_orig` (out, in/groups,
     kh, kw) and the buffers `weight_u` (out,) and `weight_v` (in/groups*kh*kw,)
-    in that flattening order. No power iteration runs: the weight is divided
-    by sigma = u . (W_mat v) with the stored vectors, as at eval time."""
+    in that flattening order. The weight is divided by sigma = u . (W_mat v).
+    In train mode each call first runs one power iteration in f32 (norms
+    + 1e-12) and stores the new (u, v) in place, without gradient; sigma
+    then keeps its gradient through W. In eval mode the stored vectors are
+    used as they are."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, groups=1, bias=True):
         super().__init__()
@@ -90,8 +110,19 @@ class SNConv2d(nn.Module):
 
     def forward(self, x):
         w = self.weight_orig
-        sigma = self.weight_u @ (w.reshape(w.shape[0], -1) @ self.weight_v)
-        return F.conv2d(x, w / sigma, self.bias, self.stride, self.padding, 1, self.groups)
+        w_mat = w.reshape(w.shape[0], -1).float()
+        u, v = self.weight_u, self.weight_v
+        if self.training:
+            with torch.no_grad():
+                v = w_mat.T @ u
+                v = v / (torch.linalg.vector_norm(v) + 1e-12)
+                u = w_mat @ v
+                u = u / (torch.linalg.vector_norm(u) + 1e-12)
+                self.weight_u.copy_(u)
+                self.weight_v.copy_(v)
+        sigma = u @ (w_mat @ v)
+        return F.conv2d(x, w / sigma.to(w.dtype), self.bias, self.stride, self.padding, 1,
+                        self.groups)
 
 
 def avg_pool_2d_2x(x: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,19 @@
-"""Fused AdaIN + snake: the CUDA kernel, its wrapper and its plain version.
+"""Fused AdaIN + snake: the CUDA kernels, their wrappers and plain versions.
 
 `adain_snake(x, gamma, beta, alpha)` computes, for x (B, C, T),
     snake((1 + gamma) * instance_norm_T(x) + beta, alpha)
 with f32 math and the output in x's dtype. On a CUDA tensor it launches the
-hand-written kernel in `csrc/adain_snake.cu` (built with nvcc at first use
-into `_build/`, loaded through ctypes); on a CPU tensor it runs
+hand-written forward kernel in `csrc/adain_snake.cu` (built with nvcc at
+first use into `_build/`, loaded through ctypes); on a CPU tensor it runs
 `adain_snake_ref`, the plain PyTorch composition that the tests and
-`chip_smoke.py` hold the kernel against. It never falls back from the
-kernel: a CUDA input the kernel cannot take raises.
+`chip_smoke.py` hold the kernel against. When an input needs a gradient it
+goes through `AdainSnake`, a `torch.autograd.Function` (the JAX package's
+custom VJP `_adain_snake_pallas`, `styletts2_tpu/ops/pallas_kernels.py:108-164`)
+whose backward is the hand-written backward kernel on CUDA tensors and
+`adain_snake_bwd_ref`, the plain port of `_bwd`, on CPU tensors. Nothing
+falls back from a kernel: a CUDA input a kernel cannot take raises.
+`adain_snake.launches` counts forward launches, `adain_snake.bwd_launches`
+backward ones.
 """
 
 from __future__ import annotations
@@ -40,6 +46,31 @@ def adain_snake_ref(x, gamma, beta, alpha, eps: float = 1e-5):
     a = alpha.float()[None, :, None]
     s = torch.sin(a * y)
     return (y + (s * s) / a).to(x.dtype)
+
+
+def adain_snake_bwd_ref(x, gamma, beta, alpha, dy, eps: float = 1e-5):
+    """Plain PyTorch port of the JAX `_bwd` (`pallas_kernels.py:117-161`):
+    the analytic VJP with every statistic recomputed and all math in f32;
+    returns (dx, dgamma, dbeta, dalpha) in the primal dtypes."""
+    dts = (x.dtype, gamma.dtype, beta.dtype, alpha.dtype)
+    x, gamma, beta, alpha, dy = (t.float() for t in (x, gamma, beta, alpha, dy))
+    mean = x.mean(dim=-1, keepdim=True)
+    xc = x - mean
+    inv = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+    xhat = xc * inv
+    g1 = 1.0 + gamma[:, :, None]
+    z = g1 * xhat + beta[:, :, None]
+    a = alpha[None, :, None]
+    s2az = torch.sin(2.0 * a * z)
+    dz = dy * (1.0 + s2az)
+    saz = torch.sin(a * z)
+    dalpha = (dy * (z * s2az / a - (saz * saz) / (a * a))).sum(dim=(0, 2))
+    dgamma = (dz * xhat).sum(dim=-1)
+    dbeta = dz.sum(dim=-1)
+    dz_g = dz * g1
+    dx = inv * (dz_g - dz_g.mean(dim=-1, keepdim=True)
+                - xhat * (dz_g * xhat).mean(dim=-1, keepdim=True))
+    return tuple(t.to(dt) for t, dt in zip((dx, dgamma, dbeta, dalpha), dts))
 
 
 def _nvcc() -> str:
@@ -75,11 +106,10 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        fn = lib.adain_snake_forward
-        vp = ctypes.c_void_p
-        fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int64, ctypes.c_int, ctypes.c_int, vp]
-        fn.restype = ctypes.c_int
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.adain_snake_forward.argtypes = [vp] * 5 + [i32, i32, i64, i32, i32, vp]
+        lib.adain_snake_backward.argtypes = [vp] * 9 + [i32, i32, i64, i32, i32, vp]
+        lib.adain_snake_forward.restype = lib.adain_snake_backward.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -88,13 +118,8 @@ def _threads(T: int) -> int:
     return 1024 if T >= 8192 else 256
 
 
-def adain_snake(x, gamma, beta, alpha):
-    """Fused AdaIN + snake of x (B, C, T) f32/bf16 with gamma, beta (B, C)
-    and alpha (C,). Kernel on CUDA, `adain_snake_ref` on CPU; inference only."""
-    if any(t.requires_grad for t in (x, gamma, beta, alpha)):
-        raise RuntimeError("adain_snake has no backward yet; call it under torch.inference_mode()")
-    if x.device.type == "cpu":
-        return adain_snake_ref(x, gamma, beta, alpha)
+def _check(x, gamma, beta, alpha):
+    """Raise on a CUDA input the kernels cannot take; return (B, C, T)."""
     if x.device.type != "cuda":
         raise RuntimeError(f"adain_snake: unsupported device {x.device}")
     if x.dim() != 3:
@@ -114,8 +139,14 @@ def adain_snake(x, gamma, beta, alpha):
     for t in (gamma, beta, alpha):
         if t.device != x.device or not t.is_floating_point():
             raise ValueError("adain_snake: gamma/beta/alpha must be floating tensors on x's device")
+    return B, C, T
+
+
+def _forward_kernel(x, gamma, beta, alpha):
+    """Launch the forward kernel (K1) on CUDA tensors."""
+    B, C, T = _check(x, gamma, beta, alpha)
     # the per-row operands are tiny; the kernel reads them as contiguous f32
-    g32, b32, a32 = (t.float().contiguous() for t in (gamma, beta, alpha))
+    g32, b32, a32 = (t.detach().float().contiguous() for t in (gamma, beta, alpha))
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -129,4 +160,66 @@ def adain_snake(x, gamma, beta, alpha):
     return out
 
 
+def adain_snake_bwd(x, gamma, beta, alpha, dy):
+    """Launch the backward kernel (K2) on CUDA tensors: the gradients
+    (dx, dgamma, dbeta, dalpha) of `adain_snake` at (x, gamma, beta, alpha)
+    for the output cotangent dy, in the primal dtypes. dy must have x's
+    shape, dtype and layout."""
+    B, C, T = _check(x, gamma, beta, alpha)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"adain_snake_bwd: dy must match x {tuple(x.shape)} {x.dtype}, got "
+                         f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    if not dy.is_contiguous():
+        raise ValueError("adain_snake_bwd: dy must be contiguous")
+    g32, b32, a32 = (t.detach().float().contiguous() for t in (gamma, beta, alpha))
+    dx = torch.empty_like(x)
+    dgamma, dbeta, dalpha_rows = (torch.empty((B, C), device=x.device) for _ in range(3))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _load().adain_snake_backward(
+            x.data_ptr(), dy.data_ptr(), g32.data_ptr(), b32.data_ptr(), a32.data_ptr(),
+            dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), dalpha_rows.data_ptr(),
+            B, C, T, int(x.dtype == torch.bfloat16), _threads(T), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"adain_snake backward kernel launch failed: cudaError {err}")
+    adain_snake.bwd_launches += 1
+    # dalpha's sum over B, in a fixed order: the same result on every run
+    dalpha = dalpha_rows.sum(dim=0)
+    return dx, dgamma.to(gamma.dtype), dbeta.to(beta.dtype), dalpha.to(alpha.dtype)
+
+
+class AdainSnake(torch.autograd.Function):
+    """`adain_snake` with its analytic backward. The forward saves only its
+    inputs, as the JAX `_fwd` does, and the backward recomputes the
+    statistics: K1 / K2 on CUDA tensors, `adain_snake_ref` /
+    `adain_snake_bwd_ref` on CPU tensors."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, alpha):
+        ctx.save_for_backward(x, gamma, beta, alpha)
+        if x.device.type == "cpu":
+            return adain_snake_ref(x, gamma, beta, alpha)
+        return _forward_kernel(x, gamma, beta, alpha)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gamma, beta, alpha = ctx.saved_tensors
+        if x.device.type == "cpu":
+            return adain_snake_bwd_ref(x, gamma, beta, alpha, dy)
+        return adain_snake_bwd(x, gamma, beta, alpha, dy.contiguous())
+
+
+def adain_snake(x, gamma, beta, alpha):
+    """Fused AdaIN + snake of x (B, C, T) f32/bf16 with gamma, beta (B, C)
+    and alpha (C,): `AdainSnake` when an input needs a gradient, else the
+    forward kernel on CUDA and `adain_snake_ref` on CPU."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, gamma, beta, alpha)):
+        return AdainSnake.apply(x, gamma, beta, alpha)
+    if x.device.type == "cpu":
+        return adain_snake_ref(x, gamma, beta, alpha)
+    return _forward_kernel(x, gamma, beta, alpha)
+
+
 adain_snake.launches = 0
+adain_snake.bwd_launches = 0

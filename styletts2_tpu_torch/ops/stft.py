@@ -82,7 +82,7 @@ def istft(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int, hop_length: 
 
 
 # ---------------------------------------------------------------------------
-# Mel front end (styletts2_tpu/ops/stft.py:52-74, 210-233)
+# Mel front end and energy (styletts2_tpu/ops/stft.py:52-74, 210-242)
 # ---------------------------------------------------------------------------
 
 MEL_MEAN = -4.0
@@ -115,13 +115,25 @@ def mel_filterbank(n_freqs: int, n_mels: int, sample_rate: int = MEL_FB_RATE) ->
     return np.maximum(0.0, np.minimum(down, up)).astype(np.float32)
 
 
-def melspectrogram(wave: torch.Tensor) -> torch.Tensor:
-    """Power mel spectrogram (B, T) -> (B, 80, 1 + T // 300)."""
-    p = stft(wave, MEL_N_FFT, MEL_HOP, MEL_WIN).abs() ** 2  # (B, n_freq, F)
-    fb = torch.from_numpy(mel_filterbank(MEL_N_FFT // 2 + 1, N_MELS)).to(wave.device)
+def melspectrogram(wave: torch.Tensor, n_fft: int = MEL_N_FFT, win_length: int = MEL_WIN,
+                   hop_length: int = MEL_HOP, n_mels: int = N_MELS,
+                   fb_sample_rate: int = MEL_FB_RATE) -> torch.Tensor:
+    """Power mel spectrogram (B, T) -> (B, n_mels, 1 + T // hop_length). The
+    front end's defaults; the training losses' mels take a 24 kHz
+    filterbank at their own resolutions."""
+    p = stft(wave, n_fft, hop_length, win_length).abs() ** 2  # (B, n_freq, F)
+    fb = torch.from_numpy(mel_filterbank(n_fft // 2 + 1, n_mels, fb_sample_rate)).to(wave.device)
     return torch.einsum("bft,fm->bmt", p, fb)
 
 
 def preprocess_mel(wave: torch.Tensor) -> torch.Tensor:
     """Wave (B, T) -> normalised log mel (log(1e-5 + mel) + 4) / 4."""
     return (torch.log(1e-5 + melspectrogram(wave)) - MEL_MEAN) / MEL_STD
+
+
+def log_norm(x: torch.Tensor, mean: float = MEL_MEAN, std: float = MEL_STD,
+             dim: int = -2) -> torch.Tensor:
+    """Energy curve of a normalised log mel: the log of the L2 norm over the
+    mel bins of the de-normalised linear mel."""
+    lin = torch.exp(x * std + mean)
+    return torch.log(torch.sqrt(torch.sum(lin * lin, dim=dim)))

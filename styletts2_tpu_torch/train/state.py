@@ -1,0 +1,141 @@
+"""Per-module optimizers, selective stepping and checkpoints
+(`styletts2_tpu/train/state.py`).
+
+One `torch.optim.AdamW` per module (betas (0, 0.99), eps 1e-9, weight decay
+1e-4, the config's lr), as the reference's per-key optimizers. A step
+updates only the modules it names (`step_modules`); a parameter of a
+stepped module that got no gradient is stepped with a zero one, because
+optax applies the weight decay to every parameter of the module it updates
+(after TMA the pitch extractor learns nothing but that decay) and
+`torch.optim` would skip it.
+
+Checkpoints use the reference layout `{"net": {module: state_dict},
+"optimizer": {module: state_dict}, "iters", "epoch"}`, written atomically
+(a temporary file, then a rename). The frozen WavLM is never written.
+`AsyncSaver` snapshots the state to host memory at once and writes it on a
+background thread; `find_latest_checkpoint` finds the newest epoch file
+for auto-resume.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from concurrent.futures import Future, ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from styletts2_tpu_torch.config import Config
+from styletts2_tpu_torch.models.build import FROZEN_MODULES
+
+
+def build_optimizers(cfg: Config, models: nn.ModuleDict) -> Dict[str, torch.optim.AdamW]:
+    lr = cfg.optimizer_params.lr
+    return {k: torch.optim.AdamW(m.parameters(), lr=lr, betas=(0.0, 0.99), eps=1e-9,
+                                 weight_decay=1e-4)
+            for k, m in models.items() if k not in FROZEN_MODULES}
+
+
+def step_modules(models: nn.ModuleDict, opts: Dict[str, torch.optim.Optimizer],
+                 keys: Iterable[str]) -> None:
+    """Step the optimizers of `keys`, every parameter of those modules
+    included (a zero gradient where none arrived), then clear their grads."""
+    for k in keys:
+        for p in models[k].parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        opts[k].step()
+        opts[k].zero_grad(set_to_none=True)
+
+
+@dataclass
+class TrainState:
+    models: nn.ModuleDict
+    opts: Dict[str, torch.optim.Optimizer]
+    step: int = 0
+    epoch: int = 0
+
+
+def _to_host(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def snapshot(state: TrainState) -> dict:
+    """The checkpoint payload, copied to host memory."""
+    return _to_host({
+        "net": {k: m.state_dict() for k, m in state.models.items() if k not in FROZEN_MODULES},
+        "optimizer": {k: o.state_dict() for k, o in state.opts.items()},
+        "iters": state.step,
+        "epoch": state.epoch,
+    })
+
+
+def write_payload(path: str, payload: dict) -> None:
+    """Atomic write: a crash mid-save never leaves a truncated file where
+    auto-resume would find it."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def save_checkpoint(path: str, state: TrainState) -> None:
+    write_payload(path, snapshot(state))
+
+
+class AsyncSaver:
+    """Checkpoint writes on one background thread: `save` snapshots now and
+    returns; `wait_for_saves` blocks until every write landed and re-raises
+    the first failure. `close` waits, then stops the thread."""
+
+    def __init__(self):
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt_save")
+        self._pending: List[Tuple[str, Future]] = []
+
+    def save(self, path: str, state: TrainState) -> Future:
+        fut = self._pool.submit(write_payload, path, snapshot(state))
+        self._pending.append((path, fut))
+        return fut
+
+    def wait_for_saves(self) -> None:
+        pending, self._pending = self._pending, []
+        for _, fut in pending:
+            fut.result()
+
+    def close(self) -> None:
+        try:
+            self.wait_for_saves()
+        finally:
+            self._pool.shutdown(wait=True)
+
+
+def find_latest_checkpoint(log_dir: str, prefix: str) -> Optional[str]:
+    """The newest `{prefix}NNNNN.pth` in log_dir by epoch number, or None."""
+    if not os.path.isdir(log_dir):
+        return None
+    pat = re.compile(re.escape(prefix) + r"(\d+)\.pth$")
+    found = [(int(m.group(1)), name) for name in os.listdir(log_dir)
+             if (m := pat.match(name))]
+    return os.path.join(log_dir, max(found)[1]) if found else None
+
+
+def load_checkpoint(path: str, state: TrainState) -> TrainState:
+    """Restore the modules, optimizers, step and epoch of a checkpoint; a
+    module the file lacks (the frozen WavLM) keeps its live weights."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    for k, sd in payload["net"].items():
+        state.models[k].load_state_dict(sd)
+    for k, sd in payload.get("optimizer", {}).items():
+        state.opts[k].load_state_dict(sd)
+    state.step = int(payload.get("iters", 0))
+    state.epoch = int(payload.get("epoch", 0))
+    return state

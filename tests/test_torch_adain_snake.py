@@ -1,11 +1,17 @@
 """The fused AdaIN+snake op of the port on the CPU: its plain version against
-the JAX composition and the Pallas kernel (interpret mode), and the
-wrapper's CPU contract. The CUDA kernel itself is compared with the plain
-version on the card, in tests/test_torch_cuda.py and chip_smoke.py.
+the JAX composition and the Pallas kernel (interpret mode), its plain
+backward and its autograd Function against the JAX custom VJP's `_bwd` and
+`jax.vjp` of the JAX composition, and the wrapper's CPU contract. The CUDA
+kernels themselves are compared with the plain versions on the card, in
+tests/test_torch_cuda.py and chip_smoke.py.
 
 Tolerance: 1e-5 absolute in f32 (the same arithmetic in another summation
 order; outputs are O(1)), 2e-2 in bf16 as tests/test_pallas.py (one bf16
-rounding of an O(1) output).
+rounding of an O(1) output). The gradients' sums over T (and over B and T
+for dalpha) reach O(10): 1e-5 of the gradient's peak in f32 against `_bwd`
+(the same f32 formula), 2e-4 absolute and 1e-3 relative against autodiff
+of the composition (another formula, as tests/test_pallas.py holds `_bwd`
+to it), one bf16 rounding (2e-2 relative) for bf16 cotangents.
 """
 
 import jax.numpy as jnp
@@ -13,8 +19,16 @@ import numpy as np
 import pytest
 import torch
 
-from styletts2_tpu.ops.pallas_kernels import _adain_snake_ref, fused_adain_snake
-from styletts2_tpu_torch.ops.adain_snake import adain_snake, adain_snake_ref
+import jax
+
+from styletts2_tpu.ops.pallas_kernels import _adain_snake_ref, _bwd, fused_adain_snake
+from styletts2_tpu_torch.ops.adain_snake import (AdainSnake, adain_snake, adain_snake_bwd_ref,
+                                                 adain_snake_ref)
+
+# the Pallas kernel unjitted: a jitted call would fill fused_adain_snake's trace
+# cache, and tests/test_pallas.py, which watches pallas_call while that function
+# traces, may run later in the same process
+pallas_adain_snake = fused_adain_snake.__wrapped__
 
 
 def _inputs(rng, B, T, C, mean=0.0):
@@ -37,7 +51,7 @@ def _port(x, gamma, beta, alpha, dtype=torch.float32):
 def test_plain_matches_jax_and_pallas_f32(rng, B, T, C):
     x, gamma, beta, alpha = _inputs(rng, B, T, C)
     want = np.asarray(_adain_snake_ref(x, gamma, beta, jnp.asarray(alpha).reshape(1, 1, C)))
-    pallas = np.asarray(fused_adain_snake(x, gamma, beta, alpha, interpret=True))
+    pallas = np.asarray(pallas_adain_snake(x, gamma, beta, alpha, interpret=True))
     got = _port(x, gamma, beta, alpha)
     np.testing.assert_allclose(got, want, atol=1e-5)
     np.testing.assert_allclose(got, pallas, atol=1e-5)
@@ -47,7 +61,7 @@ def test_plain_matches_pallas_bf16(rng):
     B, T, C = 2, 160, 256
     x, gamma, beta, alpha = _inputs(rng, B, T, C)
     bf = [np.asarray(jnp.asarray(a, jnp.bfloat16)) for a in (x, gamma, beta, alpha)]
-    pallas = fused_adain_snake(*(jnp.asarray(a) for a in bf), interpret=True)
+    pallas = pallas_adain_snake(*(jnp.asarray(a) for a in bf), interpret=True)
     got = _port(*(np.asarray(a, np.float32) for a in bf), dtype=torch.bfloat16)
     np.testing.assert_allclose(got, np.asarray(pallas, np.float32), atol=2e-2, rtol=2e-2)
 
@@ -69,5 +83,68 @@ def test_wrapper_cpu_contract(rng):
     torch.testing.assert_close(adain_snake(x, gamma, beta, alpha),
                                adain_snake_ref(x, gamma, beta, alpha))
     assert adain_snake.launches == before  # only kernel launches count
-    with pytest.raises(RuntimeError, match="backward"):
-        adain_snake(x.requires_grad_(True), gamma, beta, alpha)
+    # an input that needs a gradient goes through the autograd Function, whose
+    # CPU backward is the plain port of `_bwd`; neither counts a launch
+    leaves = [a.clone().requires_grad_(True) for a in (x, gamma, beta, alpha)]
+    bwd_before = adain_snake.bwd_launches
+    y = adain_snake(*leaves)
+    assert type(y.grad_fn).__name__ == "AdainSnakeBackward"
+    torch.testing.assert_close(y, adain_snake_ref(x, gamma, beta, alpha))
+    dy = torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(np.float32))
+    got = torch.autograd.grad(y, leaves, dy)
+    for g, w in zip(got, adain_snake_bwd_ref(x, gamma, beta, alpha, dy)):
+        torch.testing.assert_close(g, w)
+    assert (adain_snake.launches, adain_snake.bwd_launches) == (before, bwd_before)
+    with torch.no_grad():  # no graph wanted: the forward alone
+        assert adain_snake(*leaves).grad_fn is None
+
+
+def _ncw(a):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).transpose(0, 2, 1)))
+
+
+def _rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+# the tests/test_pallas.py VJP case, an odd T and a longer row
+@pytest.mark.parametrize("B,T,C", [(2, 12, 128), (2, 37, 24), (1, 500, 16)])
+def test_plain_backward_matches_jax_bwd_and_autodiff(rng, B, T, C):
+    x, gamma, beta, alpha = _inputs(rng, B, T, C)
+    dy = rng.standard_normal((B, T, C)).astype(np.float32)
+    want = _bwd(tuple(jnp.asarray(a) for a in (x, gamma, beta, alpha)), jnp.asarray(dy))
+    _, pull = jax.vjp(lambda x, g, b, a: _adain_snake_ref(x, g, b, a.reshape(1, 1, C)),
+                      x, gamma, beta, alpha)
+    auto = pull(jnp.asarray(dy))
+    port_in = (_ncw(x), torch.from_numpy(gamma), torch.from_numpy(beta), torch.from_numpy(alpha))
+    plain = adain_snake_bwd_ref(*port_in, _ncw(dy))
+    leaves = [a.clone().requires_grad_(True) for a in port_in]
+    fn = torch.autograd.grad(AdainSnake.apply(*leaves), leaves, _ncw(dy))
+    for name, p, f, w, a in zip(("dx", "dgamma", "dbeta", "dalpha"), plain, fn, want, auto):
+        p, f = p.numpy(), f.numpy()
+        if name == "dx":
+            p, f = p.transpose(0, 2, 1), f.transpose(0, 2, 1)
+        assert p.shape == w.shape and p.dtype == np.float32, name
+        np.testing.assert_array_equal(f, p)  # the Function's CPU backward is the plain one
+        assert _rel(p, w) < 1e-5, name
+        np.testing.assert_allclose(p, np.asarray(a), atol=2e-4, rtol=1e-3, err_msg=name)
+
+
+def test_plain_backward_bf16_matches_jax_bwd(rng):
+    """bf16 x and dy: f32 math inside, the cotangents back in the primal
+    dtypes, as `_bwd` returns them."""
+    B, T, C = 2, 160, 256
+    x, gamma, beta, alpha = _inputs(rng, B, T, C)
+    dy = rng.standard_normal((B, T, C)).astype(np.float32)
+    xb, dyb = (np.asarray(jnp.asarray(a, jnp.bfloat16)) for a in (x, dy))
+    want = _bwd((jnp.asarray(xb), jnp.asarray(gamma), jnp.asarray(beta), jnp.asarray(alpha)),
+                jnp.asarray(dyb))
+    got = adain_snake_bwd_ref(_ncw(xb).bfloat16(), torch.from_numpy(gamma),
+                              torch.from_numpy(beta), torch.from_numpy(alpha),
+                              _ncw(dyb).bfloat16())
+    assert [g.dtype for g in got] == [torch.bfloat16] + [torch.float32] * 3
+    np.testing.assert_allclose(got[0].float().numpy().transpose(0, 2, 1),
+                               np.asarray(want[0], np.float32), atol=2e-2, rtol=2e-2)
+    for g, w in zip(got[1:], want[1:]):
+        assert _rel(g.numpy(), w) < 1e-5

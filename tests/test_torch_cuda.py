@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels (the fused AdaIN+snake forward, K1, and its
+backward, K2) against their plain PyTorch versions, on the card.
 
 Marked `gpu`: it needs an NVIDIA GPU and nvcc, and skips elsewhere. It
 imports neither JAX nor the JAX package, so it runs on a machine with
@@ -7,13 +8,16 @@ only PyTorch:
 
 Tolerance: atol = rtol = 1e-4 in f32 (the kernel sums the statistics in
 another order than torch), 2e-2 in bf16 (one bf16 rounding of an O(1)
-output, as tests/test_pallas.py).
+output, as tests/test_pallas.py). The backward's row sums (dgamma, dbeta)
+and dalpha's sum over B and T add up to 3.8e5 f32 terms in another order
+than torch: rtol 1e-4 with atol 1e-4 of the gradient's peak; dx in bf16 is
+one bf16 rounding of an O(1) value (2e-2).
 """
 
 import pytest
 import torch
 
-from styletts2_tpu_torch.ops.adain_snake import adain_snake, adain_snake_ref
+from styletts2_tpu_torch.ops.adain_snake import adain_snake, adain_snake_bwd_ref, adain_snake_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -75,3 +79,55 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         adain_snake(x.half(), p, p, a)
     with pytest.raises(ValueError):
         adain_snake(x, p, p, torch.ones(3, device=cuda))
+
+
+# the stage-1 training shapes at batch 16 and a 200-frame clip (the
+# Generator's 256- and 128-channel stages), an odd small shape and bf16
+BWD_CASES = [
+    ((16, 256, 4000), torch.float32),
+    ((16, 128, 24001), torch.float32),
+    ((2, 100, 37), torch.float32),
+    ((2, 256, 160), torch.bfloat16),
+]
+
+
+def _close(got, want, dtype):
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.parametrize("shape,dtype", BWD_CASES)
+def test_backward_kernel_matches_plain(cuda, shape, dtype):
+    B, C, T = shape
+    g = torch.Generator(cuda).manual_seed(1)
+    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
+    gamma = torch.randn((B, C), generator=g, device=cuda) * 0.1
+    beta = torch.randn((B, C), generator=g, device=cuda) * 0.1
+    alpha = torch.rand((C,), generator=g, device=cuda) + 0.5
+    dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta, alpha)]
+    fwd, bwd = adain_snake.launches, adain_snake.bwd_launches
+    y = adain_snake(*leaves)
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    assert (adain_snake.launches, adain_snake.bwd_launches) == (fwd + 1, bwd + 1)
+    plain = adain_snake_bwd_ref(x, gamma, beta, alpha, dy)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta, alpha)]
+    auto = torch.autograd.grad(adain_snake_ref(*ref_leaves), ref_leaves, dy)
+    for name, k, p, a in zip(("dx", "dgamma", "dbeta", "dalpha"), got, plain, auto):
+        assert k.dtype == p.dtype and k.shape == p.shape, name
+        _close(k, p, k.dtype)
+        _close(k, a, k.dtype)
+
+
+def test_backward_kernel_rejects_what_it_cannot_take(cuda):
+    from styletts2_tpu_torch.ops.adain_snake import adain_snake_bwd
+
+    x = torch.randn((1, 4, 16), device=cuda)
+    p = torch.zeros((1, 4), device=cuda)
+    a = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError):
+        adain_snake_bwd(x, p, p, a, torch.randn((1, 16, 4), device=cuda).transpose(1, 2))
+    with pytest.raises(ValueError):
+        adain_snake_bwd(x, p, p, a, torch.randn((1, 4, 16), device=cuda).bfloat16())

@@ -57,7 +57,7 @@ def test_snconv2d(rng, cin, cout, k, stride, pad, groups, bias):
     want = np.asarray(mod.apply(variables, x))
     sd = {}
     pc._snconv2d(variables["params"], variables["spectral"], sd, "m")
-    port = pl.SNConv2d(cin, cout, k, stride, pad, groups, bias).requires_grad_(False)
+    port = pl.SNConv2d(cin, cout, k, stride, pad, groups, bias).requires_grad_(False).eval()
     port.load_state_dict({k[2:]: t(v) for k, v in sd.items()})
     got = port(t(x.transpose(0, 3, 1, 2))).numpy().transpose(0, 2, 3, 1)
     assert got.shape == want.shape
@@ -84,7 +84,7 @@ def test_style_encoder():
     _fi_spectral_align(variables["spectral"], variables["params"])
     sd = {}
     pc._style_encoder(variables, sd)
-    port = StyleEncoder(8, 16, 32).requires_grad_(False)
+    port = StyleEncoder(8, 16, 32).requires_grad_(False).eval()
     port.load_state_dict({k: t(v) for k, v in sd.items()})
     mel = np.random.default_rng(4).standard_normal((2, 80, 101)).astype(np.float32)
     lengths = np.asarray([101, 83], np.int32)

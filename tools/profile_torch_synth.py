@@ -86,11 +86,11 @@ def main():
     print(json.dumps({"config": args.config, "wall_ms": wall_us / 1e3, **breakdown, "device": smi}))
 
 
-def stage_breakdown(trace: Path) -> dict:
-    """Kernel time and launches under each stage span, from the Chrome trace:
-    a kernel belongs to the span that was open when it was launched."""
+def stage_breakdown(trace: Path, names=STAGES) -> dict:
+    """Kernel time and launches under each span of `names`, from the Chrome
+    trace: a kernel belongs to the span that was open when it was launched."""
     ev = json.loads(trace.read_text())["traceEvents"]
-    spans = [e for e in ev if e.get("cat") == "user_annotation" and e["name"] in STAGES]
+    spans = [e for e in ev if e.get("cat") == "user_annotation" and e["name"] in names]
     launched = {e["args"]["correlation"]: e["ts"] for e in ev
                 if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
     kernels = [e for e in ev if e.get("cat") == "kernel"]
