@@ -6,10 +6,16 @@
 Phases, one line each; any failure raises, so the exit code is non-zero:
   1. device: the card's name and power limit; TF32 off for convs and matmuls
   2. build: compile the CUDA kernel from styletts2_tpu_torch/csrc/
-  3. kernel: the fused AdaIN+snake kernel against its plain PyTorch version
-     at both decoders' shapes of an 8 s utterance, the server's batched
-     HiFi-GAN shape, the JAX tests' shapes and an odd T; CUDA-event times of
-     both at the main paths' shapes
+  3. kernel: the fused AdaIN+snake kernel (K1) against its plain PyTorch
+     version at both decoders' shapes of an 8 s utterance, the server's
+     batched HiFi-GAN shape, the training shapes, the JAX tests' shapes, an
+     odd T, rows that stream from global memory, bf16 split over 8 blocks,
+     and rows split over a forced cluster of k blocks (odd T at every k,
+     T < 16); two launches give the same bits. At the main paths' shapes,
+     the card's time (CUDA graphs of many calls, CUDA events) of the kernel
+     and the plain version, cold (inputs rotated over 3x the L2) and warm,
+     beside the bound (bytes at 3.35 TB/s), F.instance_norm's time as a
+     yardstick, and an eager call's time (the host's launch included)
   4. LJSpeech path: full-width Config() synthesis with seeded random weights
      answers 3 requests; each waveform is finite, sum(durations) * 600 long,
      and its decode launched the kernel 48 times
@@ -29,10 +35,12 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
   8. LibriTTS references: a request and an inference_batch of 3 texts on the
      card agree with the CPU, random draws from the host, the harmonic sines
      zeroed and the Generator's head kept out of tanh's saturation
-  9. backward kernel: the fused op's backward kernel against its plain
+  9. backward kernel: the fused op's backward kernel (K2) against its plain
      version (`adain_snake_bwd_ref`) and against autograd through
      `adain_snake_ref`, at the stage-1 training shapes (batch 16, a 200-frame
-     clip), an odd small shape and bf16; CUDA-event times of both
+     clip), an odd small shape, bf16, a streamed row and forced clusters;
+     two launches give the same bits; cold and warm times of both on the
+     card (CUDA graphs) at the training shapes, beside the bound
  10. stage-1 training: `train.run.run_stage("first", Config(), ...)` on a
      seeded fixture of 32 utterances of 6-9 s at full width, batch 16,
      max_len 400, TMA from epoch 1 of 2: 2 pre-TMA and 2 TMA steps, each
@@ -103,7 +111,19 @@ BWD_CASES = [  # the training shapes, an odd small shape and bf16
     ((2, 100, 37), "float32"),
     ((2, 256, 160), "bfloat16"),
 ]
+# (shape, dtype, cluster size k or None for the plan's own) beyond the main
+# paths: rows split over a forced cluster of k blocks, with odd T not
+# divisible by k at every k, T < 16 (ranks past the row's end) and bf16 at
+# k = 8; then rows whose slices exceed shared memory and stream (odd T),
+# and, forward only, bf16 split over 8 blocks
+SPLIT_CASES = [((2, 5, 1001), "float32", k) for k in (1, 2, 4, 8)] + [
+    ((1, 3, 13), "float32", 8), ((2, 4, 5), "float32", 4), ((2, 5, 1001), "bfloat16", 8)]
+EDGE_CASES = SPLIT_CASES + [((1, 32, 480000), "float32", None), ((1, 8, 480001), "float32", None),
+                            ((1, 32, 192000), "bfloat16", None)]
+BWD_EDGE_CASES = SPLIT_CASES + [((1, 16, 240001), "float32", None)]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak HBM3 bandwidth
+ROTATE_BYTES = 3 * 50 * 2 ** 20  # cold timings rotate over inputs of 3x the 50 MB L2
 TRAIN_TEXTS = [BENCH_TEXT] + SERVE_TEXTS
 CALLS_PER_STEP = 48  # forward and backward launches per stage-1 generator step
 SMALL = {"max_len": 80, "model_params": {  # the reduced width of phase 11
@@ -114,17 +134,85 @@ GRAD_TOL = 3e-2  # L2 of the gradient difference over its norm, per module
 REPO = Path(__file__).resolve().parent
 
 
-def _ms(fn, iters=200, warmup=20):
-    for _ in range(warmup):
-        fn()
+def _ms(fn, iters=200, warmup=20, sets=((),)):
+    """CUDA-event ms per call of fn(*args), args taken in turn from `sets`."""
+    for i in range(warmup):
+        fn(*sets[i % len(sets)])
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    for _ in range(iters):
-        fn()
+    for i in range(iters):
+        fn(*sets[i % len(sets)])
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters, sets=((),)):
+    """Device ms per call of fn(*args), args taken in turn from `sets`: the
+    calls captured in one CUDA graph and replayed, so that the time is the
+    card's and not the host's launch overhead (at B = 1 the host takes
+    longer to launch a kernel than the card to run it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture: builds, plans, allocations
+        for i in range(3):
+            fn(*sets[i % len(sets)])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*sets[i % len(sets)])
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def _turns(fns, sets, iters, warmup=3, graph=True):
+    """Each of fns timed twice in turns (A, B, ..., B, A), on the card
+    (`graph_ms`) or per eager call (`_ms`, the host's launch included):
+    one (first, second) pair of ms per function."""
+    order = list(fns) + list(reversed(fns))
+    t = [graph_ms(f, iters, sets) if graph else _ms(f, iters, warmup, sets) for f in order]
+    return [(t[i], t[len(t) - 1 - i]) for i in range(len(fns))]
+
+
+def rotation(args, nbytes):
+    """Input sets for cold-L2 timing: `args` and copies of it, enough that
+    the calls between two uses of one set read ROTATE_BYTES of other inputs
+    (`nbytes` per set)."""
+    n = max(2, -(-ROTATE_BYTES // nbytes) + 1)
+    return [args] + [tuple(t.clone() for t in args) for _ in range(n - 1)]
+
+
+def bound_ms(shape, dtype, backward=False):
+    """The least time of one K1 (K2 when `backward`) call on the card: each
+    input byte read once and each output byte written once at the HBM rate.
+    K1 reads x, gamma, beta, alpha and writes out; K2 reads x, dy, gamma,
+    beta, alpha and writes dx, dgamma, dbeta and the per-row dalpha."""
+    B, C, T = shape
+    size = 2 if dtype in ("bfloat16", torch.bfloat16) else 4
+    rows = (3 if backward else 2) * B * C * T * size
+    vectors = (2 * B * C + C + (3 * B * C if backward else 0)) * 4
+    return (rows + vectors) / HBM_BYTES_PER_S * 1e3
+
+
+def kernel_inputs(g, dev, shape, dtype, with_dy=False):
+    """Seeded (x, gamma, beta, alpha[, dy]) on `dev` for x of `shape`."""
+    B, C, T = shape
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    gamma = torch.randn((B, C), generator=g, device=dev) * 0.1
+    beta = torch.randn((B, C), generator=g, device=dev) * 0.1
+    alpha = torch.rand((C,), generator=g, device=dev) + 0.5
+    if not with_dy:
+        return x, gamma, beta, alpha
+    return x, gamma, beta, alpha, torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
 def _host_draws(fn, *args, **kwargs):
@@ -318,47 +406,121 @@ def _post(port, obj):
         return resp.status, resp.headers.get("Content-Type"), resp.read()
 
 
+def _plan_text(plan, shape):
+    B, C, _ = shape
+    return (f"k={plan.k} ({B * C * plan.k} blocks of {plan.threads}), slice {plan.slice}, "
+            + (f"{plan.smem / 1024:.1f} KB shared" if plan.smem else "streamed"))
+
+
+def _times_text(name, pairs):
+    return f"{name} " + ", ".join(f"{a:.4f}/{b:.4f}" for a, b in pairs)
+
+
+def kernel_phase(op, dev, smi):
+    """Phase 3: K1 against its plain version at every case, twice (the same
+    bits), and at forced cluster sizes; cold and warm times at the main
+    paths' shapes. Returns (max abs error over the f32 cases, {shape:
+    {"cold": (kernel, plain), "warm": ..., "bound": ms}})."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(dev).manual_seed(0)
+    max_err, timings = 0.0, {}
+    for shape, dt, k in [(shape, dt, None) for shape, dt in KERNEL_CASES] + EDGE_CASES:
+        dtype = getattr(torch, dt)
+        args = kernel_inputs(g, dev, shape, dtype)
+        with torch.inference_mode():
+            got = op._forward_kernel(*args, k=k)
+            again = op._forward_kernel(*args, k=k)
+            torch.cuda.synchronize()
+            want = op.adain_snake_ref(*args)
+        err = float((got.float() - want.float()).abs().max())
+        torch.testing.assert_close(got.float(), want.float(), atol=TOL[dt], rtol=TOL[dt])
+        if not torch.equal(got, again):
+            raise RuntimeError(f"K1 {shape} {dt}: two launches differ")
+        plan = op.plan_of(args[0], k=k)
+        line = (f"[3 kernel] {shape} {dt}, {_plan_text(plan, shape)}: max_abs_err {err:.3e} "
+                f"(tol {TOL[dt]:g}), repeat bit-equal")
+        if dt == "float32":
+            max_err = max(max_err, err)
+        if (shape, dt) in KERNEL_CASES and shape[2] >= 4000:  # the main paths' shapes
+            iters = 100 if args[0].numel() < 10 ** 7 else 40
+            nbytes = args[0].numel() * args[0].element_size()
+            bound = bound_ms(shape, dt)
+            with torch.inference_mode():
+                fns = (op.adain_snake_ref, op.adain_snake)
+                (pc, kc) = _turns(fns, rotation(args, nbytes), iters)
+                (pw, kw) = _turns(fns, [args], iters)
+                (_, ke) = _turns(fns, [args], iters, graph=False)
+                inorm = [graph_ms(lambda x, *_: F.instance_norm(x), iters, sets)
+                         for sets in (rotation(args, nbytes), [args])]
+            cold = (kc[0] + kc[1]) / 2
+            timings[shape] = {"cold": (cold, (pc[0] + pc[1]) / 2),
+                              "warm": ((kw[0] + kw[1]) / 2, (pw[0] + pw[1]) / 2), "bound": bound}
+            line += (f"; card ms: {_times_text('kernel cold', [kc])} warm {kw[0]:.4f}/{kw[1]:.4f}, "
+                     f"{_times_text('plain cold', [pc])} warm {pw[0]:.4f}/{pw[1]:.4f}; bound "
+                     f"{bound:.4f}, cold share {bound / cold:.0%}; yardstick F.instance_norm "
+                     f"(less work) cold {inorm[0]:.4f} warm {inorm[1]:.4f}; an eager call "
+                     f"{ke[0]:.4f}/{ke[1]:.4f} [{smi}]")
+        print(line, flush=True)
+        del args, got, again, want
+    torch.cuda.empty_cache()
+    slower = [f"{c}: {t['cold'][0]:.4f} vs {t['cold'][1]:.4f} ms" for c, t in timings.items()
+              if t["cold"][0] > t["cold"][1]]
+    print(f"[3 kernel] slower than plain (cold) at: {'; '.join(slower) or 'no shape'} [{smi}]",
+          flush=True)
+    return max_err, timings
+
+
 def backward_phase(op, dev, smi):
     """Phase 9: the backward kernel against its plain version and autograd
-    through the forward's plain version; CUDA-event times at the training
-    shapes. Returns (dx's max abs error over the f32 cases, {shape: (kernel
-    ms, plain ms)})."""
+    through the forward's plain version, twice (the same bits), and at
+    forced cluster sizes; cold and warm times at the training shapes.
+    Returns (dx's max abs error over the f32 cases, {shape: {"cold":
+    (kernel ms, plain ms), "warm": ..., "bound": ms}})."""
     g = torch.Generator(dev).manual_seed(1)
     bwd_err, bwd_timings = 0.0, {}
-    for (B, C, T), dt in BWD_CASES:
+    for shape, dt, k in [(shape, dt, None) for shape, dt in BWD_CASES] + BWD_EDGE_CASES:
         dtype = getattr(torch, dt)
-        x = (torch.randn((B, C, T), generator=g, device=dev) * 2 + 0.5).to(dtype)
-        gamma = torch.randn((B, C), generator=g, device=dev) * 0.1
-        beta = torch.randn((B, C), generator=g, device=dev) * 0.1
-        alpha = torch.rand((C,), generator=g, device=dev) + 0.5
-        dy = torch.randn((B, C, T), generator=g, device=dev).to(dtype)
-        got = op.adain_snake_bwd(x, gamma, beta, alpha, dy)
+        args = kernel_inputs(g, dev, shape, dtype, with_dy=True)
+        got = op.adain_snake_bwd(*args, k=k)
+        again = op.adain_snake_bwd(*args, k=k)
         torch.cuda.synchronize()
-        plain = op.adain_snake_bwd_ref(x, gamma, beta, alpha, dy)
-        leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta, alpha)]
-        auto = torch.autograd.grad(op.adain_snake_ref(*leaves), leaves, dy)
+        plain = op.adain_snake_bwd_ref(*args)
+        leaves = [t.clone().requires_grad_(True) for t in args[:4]]
+        auto = torch.autograd.grad(op.adain_snake_ref(*leaves), leaves, args[4])
         errs = []
-        for k, p, a in zip(got, plain, auto):
-            if k.dtype != p.dtype or k.shape != p.shape:
-                raise RuntimeError(f"backward kernel: {k.dtype} {tuple(k.shape)} vs {p.dtype} "
+        for a, b, p, au in zip(got, again, plain, auto):
+            if a.dtype != p.dtype or a.shape != p.shape:
+                raise RuntimeError(f"backward kernel: {a.dtype} {tuple(a.shape)} vs {p.dtype} "
                                    f"{tuple(p.shape)}")
-            _close(k, p, k.dtype)
-            _close(k, a, k.dtype)
-            errs.append(float((k.float() - p.float()).abs().max() / p.float().abs().max()))
-        line = (f"[9 backward] ({B},{C},{T}) {dt}: rel err vs plain dx {errs[0]:.2e}, dgamma "
-                f"{errs[1]:.2e}, dbeta {errs[2]:.2e}, dalpha {errs[3]:.2e}; dx max abs err "
-                f"{float((got[0].float() - plain[0].float()).abs().max()):.3e} (tol {TOL[dt]:g} "
-                "of each peak, and against autograd)")
+            if not torch.equal(a, b):
+                raise RuntimeError(f"K2 {shape} {dt}: two launches differ")
+            _close(a, p, a.dtype)
+            _close(a, au, a.dtype)
+            errs.append(float((a.float() - p.float()).abs().max() / p.float().abs().max()))
+        plan = op.plan_of(args[0], True, k)
+        line = (f"[9 backward] {shape} {dt}, {_plan_text(plan, shape)}: rel err vs plain dx "
+                f"{errs[0]:.2e}, dgamma {errs[1]:.2e}, dbeta {errs[2]:.2e}, dalpha {errs[3]:.2e}; "
+                f"dx max abs err {float((got[0].float() - plain[0].float()).abs().max()):.3e} "
+                f"(tol {TOL[dt]:g} of each peak, and against autograd); repeat bit-equal")
         if dt == "float32":
             bwd_err = max(bwd_err, float((got[0] - plain[0]).abs().max()))
-        if B == 16:  # the training shapes
-            run_k = lambda: op.adain_snake_bwd(x, gamma, beta, alpha, dy)  # noqa: E731
-            run_p = lambda: op.adain_snake_bwd_ref(x, gamma, beta, alpha, dy)  # noqa: E731
-            p1, k1, k2, p2 = (_ms(f, 20, 3) for f in (run_p, run_k, run_k, run_p))
-            bwd_timings[(B, C, T)] = ((k1 + k2) / 2, (p1 + p2) / 2)
-            line += f"; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms [{smi}]"
+        if (shape, dt) in BWD_CASES and shape[0] == 16:  # the training shapes
+            nbytes = 2 * args[0].numel() * args[0].element_size()
+            bound = bound_ms(shape, dt, backward=True)
+            fns = (op.adain_snake_bwd_ref, op.adain_snake_bwd)
+            with torch.inference_mode():
+                (pc, kc) = _turns(fns, rotation(args, nbytes), 10)
+                (pw, kw) = _turns(fns, [args], 10)
+            cold = (kc[0] + kc[1]) / 2
+            bwd_timings[shape] = {"cold": (cold, (pc[0] + pc[1]) / 2),
+                                  "warm": ((kw[0] + kw[1]) / 2, (pw[0] + pw[1]) / 2),
+                                  "bound": bound}
+            line += (f"; card ms: {_times_text('kernel cold', [kc])} warm {kw[0]:.4f}/{kw[1]:.4f}, "
+                     f"{_times_text('plain cold', [pc])} warm {pw[0]:.4f}/{pw[1]:.4f}; bound "
+                     f"{bound:.4f}, cold share {bound / cold:.0%} [{smi}]")
         print(line, flush=True)
-        del x, dy, got, plain, auto, leaves
+        del args, got, again, plain, auto, leaves
     torch.cuda.empty_cache()
     return bwd_err, bwd_timings
 
@@ -523,37 +685,7 @@ def main():
     print(f"[2 build] {lib.relative_to(Path(op.__file__).resolve().parents[2])} "
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # 3. kernel vs plain
-    g = torch.Generator(dev).manual_seed(0)
-    max_err = 0.0
-    timings = {}
-    for (B, C, T), dt in KERNEL_CASES:
-        dtype = getattr(torch, dt)
-        x = (torch.randn((B, C, T), generator=g, device=dev) * 2 + 0.5).to(dtype)
-        gamma = torch.randn((B, C), generator=g, device=dev) * 0.1
-        beta = torch.randn((B, C), generator=g, device=dev) * 0.1
-        alpha = torch.rand((C,), generator=g, device=dev) + 0.5
-        with torch.inference_mode():
-            got = op.adain_snake(x, gamma, beta, alpha)
-            torch.cuda.synchronize()
-            want = op.adain_snake_ref(x, gamma, beta, alpha)
-        err = float((got.float() - want.float()).abs().max())
-        torch.testing.assert_close(got.float(), want.float(), atol=TOL[dt], rtol=TOL[dt])
-        line = f"[3 kernel] ({B},{C},{T}) {dt}: max_abs_err {err:.3e} (tol {TOL[dt]:g})"
-        if dt == "float32":
-            max_err = max(max_err, err)
-        if T >= 4000:  # the main paths' shapes
-            iters = 200 if x.numel() < 10 ** 7 else 50
-            with torch.inference_mode():
-                run_k = lambda: op.adain_snake(x, gamma, beta, alpha)  # noqa: E731
-                run_p = lambda: op.adain_snake_ref(x, gamma, beta, alpha)  # noqa: E731
-                p1, k1, k2, p2 = (_ms(f, iters) for f in (run_p, run_k, run_k, run_p))
-            timings[(B, C, T)] = ((k1 + k2) / 2, (p1 + p2) / 2)
-            line += f"; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms [{smi}]"
-        print(line, flush=True)
-        del x
-    slower = [f"{c}: {k:.4f} vs {p:.4f} ms" for c, (k, p) in timings.items() if k > p]
-    print(f"[3 kernel] slower than plain at: {'; '.join(slower) or 'no shape'} [{smi}]", flush=True)
+    max_err, timings = kernel_phase(op, dev, smi)  # 3
 
     # 4. LJSpeech path
     t0 = time.perf_counter()
@@ -723,19 +855,22 @@ def main():
     train_k1, train_k2 = training_phase(op, build_dir, smi)  # 10
     training_reference_phase(dev)  # 11
 
-    k_ms, p_ms = timings[(8, 32, 192000)]  # the largest shape
-    bk_ms, bp_ms = bwd_timings[(16, 128, 24001)]
+    fwd_shape, bwd_shape = (8, 32, 192000), (16, 128, 24001)  # a server batch's last stage; training
+    fwd, bwd = timings[fwd_shape], bwd_timings[bwd_shape]
     print(json.dumps({"kernels": [{
         "name": "adain_snake", "route": "cuda",
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:38",
         "launches": lj.launches + lt.launches + sv.launches + train_k1, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms,
+        "ms": fwd["cold"][0], "plain_ms": fwd["cold"][1], "bound_ms": fwd["bound"],
+        "bound_by": "bytes", "library_ms": None, "shape": list(fwd_shape),
     }, {
         "name": "adain_snake_bwd", "route": "cuda",
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:117",
-        "launches": train_k2, "max_abs_err": bwd_err, "ms": bk_ms, "plain_ms": bp_ms,
+        "launches": train_k2, "max_abs_err": bwd_err, "ms": bwd["cold"][0],
+        "plain_ms": bwd["cold"][1], "bound_ms": bwd["bound"], "bound_by": "bytes",
+        "library_ms": None, "shape": list(bwd_shape),
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -64,10 +64,14 @@ class Synthesizer:
     inference API (single- or multispeaker, as `cfg` says).
 
     `state_dict` is the port's layout (`convert.state_dict_from_jax`); without
-    it the weights are random, drawn from `seed`."""
+    it the weights are random, drawn from `seed`. The modules run on the card
+    unless the caller asks for the CPU (`device="cpu"`); a CUDA device that
+    is not there is an error, never a fall-back to the CPU."""
 
-    def __init__(self, cfg: Config, state_dict=None, seed: int = 0, device="cpu"):
+    def __init__(self, cfg: Config, state_dict=None, seed: int = 0, device="cuda"):
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"Synthesizer: device {device}: no CUDA device is available")
         mp = cfg.model_params
         self.style_dim = mp.style_dim
         self.multispeaker = mp.multispeaker

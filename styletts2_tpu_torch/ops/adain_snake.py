@@ -11,19 +11,24 @@ goes through `AdainSnake`, a `torch.autograd.Function` (the JAX package's
 custom VJP `_adain_snake_pallas`, `styletts2_tpu/ops/pallas_kernels.py:108-164`)
 whose backward is the hand-written backward kernel on CUDA tensors and
 `adain_snake_bwd_ref`, the plain port of `_bwd`, on CPU tensors. Nothing
-falls back from a kernel: a CUDA input a kernel cannot take raises.
-`adain_snake.launches` counts forward launches, `adain_snake.bwd_launches`
-backward ones.
+falls back from a kernel: a CUDA input a kernel cannot take, or a launch
+the card refuses, raises. Both kernels split each (b, c) row over a
+thread-block cluster of `_plan(...).k` blocks that hold their slices in
+shared memory. `adain_snake.launches` counts forward launches,
+`adain_snake.bwd_launches` backward ones.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -107,15 +112,97 @@ def _load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.adain_snake_forward.argtypes = [vp] * 5 + [i32, i32, i64, i32, i32, vp]
-        lib.adain_snake_backward.argtypes = [vp] * 9 + [i32, i32, i64, i32, i32, vp]
+        plan = [i32, i32, i64, i32, i32, i64, i32, i32, vp]  # B, C, T, is_bf16, plan, stream
+        lib.adain_snake_forward.argtypes = [vp] * 5 + plan
+        lib.adain_snake_backward.argtypes = [vp] * 9 + plan
+        lib.adain_snake_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
         lib.adain_snake_forward.restype = lib.adain_snake_backward.restype = ctypes.c_int
+        lib.adain_snake_limits.restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _threads(T: int) -> int:
-    return 1024 if T >= 8192 else 256
+MIN_SLICE = 1024  # elements below which a row is not split further
+
+
+class Limits(NamedTuple):
+    """A card's room for a plan (`adain_snake_limits` in the library): its
+    SMs, the dynamic shared memory one block of either kernel may take, and
+    that of each of two blocks sharing an SM."""
+    sms: int
+    block: int
+    pair: int
+
+
+class Plan(NamedTuple):
+    """How a kernel launch covers (B, C, T): B*C*k blocks in clusters of k,
+    one cluster per row; each block takes `slice` elements of its row (a
+    multiple of 16 bytes; the kernel puts the boundaries on aligned
+    addresses), with `threads` threads and `smem` bytes of dynamic shared
+    memory for its slice of x (and, backward, of dy). smem 0: the slice does
+    not fit, and each pass streams it from global memory."""
+    k: int
+    slice: int
+    threads: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(B: int, C: int, T: int, dtype, limits: Limits, backward: bool = False,
+          k: Optional[int] = None) -> Plan:
+    """The launch plan of K1 (K2 when `backward`) for x (B, C, T) of `dtype`
+    on a card with `limits`. k: the smallest cluster size in {1, 2, 4, 8}
+    whose B*C*k blocks fill the SMs and whose slices fit two blocks to an SM
+    (then one), rows shorter than k * MIN_SLICE not split that far; k = 8
+    and streaming where no slice fits. An explicit `k` is taken as it is
+    (the tests' ragged edges)."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    vec = 16 // size
+    arrays = 2 if backward else 1
+
+    def at(k):  # (slice, its bytes)
+        n = -(-T // k)
+        n = -(-n // vec) * vec
+        return n, arrays * n * size
+
+    if k is None:
+        ks = [k for k in (1, 2, 4, 8) if k == 1 or T >= k * MIN_SLICE]
+        fill = next((k for k in ks if B * C * k >= limits.sms), ks[-1])
+        k = next((k for limit in (limits.pair, limits.block) for k in ks
+                  if k >= fill and at(k)[1] <= limit), 8)
+    n, nbytes = at(k)
+    threads = 512 if n >= 8192 else 256 if n >= 1024 else 128
+    return Plan(k, n, threads, nbytes if nbytes <= limits.block else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _limits(index: int) -> Limits:
+    """The limits of CUDA device `index`, read once."""
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(index):
+        err = _load().adain_snake_limits(out)
+    if err != 0:
+        raise RuntimeError(f"adain_snake: reading the limits of cuda:{index} failed: cudaError {err}")
+    return Limits(*out)
+
+
+def plan_of(x, backward: bool = False, k: Optional[int] = None) -> Plan:
+    """The launch plan for the CUDA tensor x (B, C, T) on its card."""
+    return _plan(*x.shape, x.dtype, _limits(x.device.index), backward, k)
+
+
+def _on(x):
+    """A context that makes x's card the current one (a no-op when it is):
+    the kernels launch on the current device's stream."""
+    if x.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(x.device)
+
+
+def _f32(*ts):
+    """The per-row operands as contiguous f32, the kernels' layout (the same
+    tensors when they are already)."""
+    return [t.float().contiguous() for t in ts]
 
 
 def _check(x, gamma, beta, alpha):
@@ -127,8 +214,9 @@ def _check(x, gamma, beta, alpha):
     B, C, T = x.shape
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"adain_snake: x must be float32 or bfloat16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("adain_snake: x must be contiguous")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("adain_snake: x must be contiguous and start on a 16-byte boundary "
+                         "(a view at another offset: pass a copy)")
     if T < 1 or B * C < 1:
         raise ValueError(f"adain_snake: empty input {tuple(x.shape)}")
     if tuple(gamma.shape) != (B, C) or tuple(beta.shape) != (B, C) or tuple(alpha.shape) != (C,):
@@ -142,47 +230,49 @@ def _check(x, gamma, beta, alpha):
     return B, C, T
 
 
-def _forward_kernel(x, gamma, beta, alpha):
-    """Launch the forward kernel (K1) on CUDA tensors."""
+def _forward_kernel(x, gamma, beta, alpha, k: Optional[int] = None):
+    """Launch the forward kernel (K1) on CUDA tensors; `k` overrides the
+    plan's cluster size."""
     B, C, T = _check(x, gamma, beta, alpha)
-    # the per-row operands are tiny; the kernel reads them as contiguous f32
-    g32, b32, a32 = (t.detach().float().contiguous() for t in (gamma, beta, alpha))
+    g32, b32, a32 = _f32(gamma, beta, alpha)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
+    plan = plan_of(x, k=k)
+    with _on(x):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _load().adain_snake_forward(
             x.data_ptr(), g32.data_ptr(), b32.data_ptr(), a32.data_ptr(), out.data_ptr(),
-            B, C, T, int(x.dtype == torch.bfloat16), _threads(T), stream,
+            B, C, T, int(x.dtype == torch.bfloat16), *plan, stream,
         )
     if err != 0:
-        raise RuntimeError(f"adain_snake kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"adain_snake kernel launch failed: cudaError {err} for {plan}")
     adain_snake.launches += 1
     return out
 
 
-def adain_snake_bwd(x, gamma, beta, alpha, dy):
+def adain_snake_bwd(x, gamma, beta, alpha, dy, k: Optional[int] = None):
     """Launch the backward kernel (K2) on CUDA tensors: the gradients
     (dx, dgamma, dbeta, dalpha) of `adain_snake` at (x, gamma, beta, alpha)
     for the output cotangent dy, in the primal dtypes. dy must have x's
-    shape, dtype and layout."""
+    shape, dtype and layout. `k` overrides the plan's cluster size."""
     B, C, T = _check(x, gamma, beta, alpha)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"adain_snake_bwd: dy must match x {tuple(x.shape)} {x.dtype}, got "
                          f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
-    if not dy.is_contiguous():
-        raise ValueError("adain_snake_bwd: dy must be contiguous")
-    g32, b32, a32 = (t.detach().float().contiguous() for t in (gamma, beta, alpha))
+    if not dy.is_contiguous() or dy.data_ptr() % 16:
+        raise ValueError("adain_snake_bwd: dy must be contiguous and start on a 16-byte boundary")
+    g32, b32, a32 = _f32(gamma, beta, alpha)
     dx = torch.empty_like(x)
     dgamma, dbeta, dalpha_rows = (torch.empty((B, C), device=x.device) for _ in range(3))
-    with torch.cuda.device(x.device):
+    plan = plan_of(x, True, k)
+    with _on(x):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _load().adain_snake_backward(
             x.data_ptr(), dy.data_ptr(), g32.data_ptr(), b32.data_ptr(), a32.data_ptr(),
             dx.data_ptr(), dgamma.data_ptr(), dbeta.data_ptr(), dalpha_rows.data_ptr(),
-            B, C, T, int(x.dtype == torch.bfloat16), _threads(T), stream,
+            B, C, T, int(x.dtype == torch.bfloat16), *plan, stream,
         )
     if err != 0:
-        raise RuntimeError(f"adain_snake backward kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"adain_snake backward kernel launch failed: cudaError {err} for {plan}")
     adain_snake.bwd_launches += 1
     # dalpha's sum over B, in a fixed order: the same result on every run
     dalpha = dalpha_rows.sum(dim=0)

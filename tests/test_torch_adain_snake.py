@@ -1,8 +1,9 @@
 """The fused AdaIN+snake op of the port on the CPU: its plain version against
 the JAX composition and the Pallas kernel (interpret mode), its plain
 backward and its autograd Function against the JAX custom VJP's `_bwd` and
-`jax.vjp` of the JAX composition, and the wrapper's CPU contract. The CUDA
-kernels themselves are compared with the plain versions on the card, in
+`jax.vjp` of the JAX composition, the wrapper's CPU contract, and the
+kernels' launch plan (`_plan`) at the main paths' shapes. The CUDA kernels
+themselves are compared with the plain versions on the card, in
 tests/test_torch_cuda.py and chip_smoke.py.
 
 Tolerance: 1e-5 absolute in f32 (the same arithmetic in another summation
@@ -14,6 +15,9 @@ of the composition (another formula, as tests/test_pallas.py holds `_bwd`
 to it), one bf16 rounding (2e-2 relative) for bf16 cotangents.
 """
 
+import sys
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,8 +26,11 @@ import torch
 import jax
 
 from styletts2_tpu.ops.pallas_kernels import _adain_snake_ref, _bwd, fused_adain_snake
-from styletts2_tpu_torch.ops.adain_snake import (AdainSnake, adain_snake, adain_snake_bwd_ref,
-                                                 adain_snake_ref)
+from styletts2_tpu_torch.ops.adain_snake import (AdainSnake, Limits, _plan, adain_snake,
+                                                 adain_snake_bwd_ref, adain_snake_ref)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 # the Pallas kernel unjitted: a jitted call would fill fused_adain_snake's trace
 # cache, and tests/test_pallas.py, which watches pallas_call while that function
@@ -148,3 +155,63 @@ def test_plain_backward_bf16_matches_jax_bwd(rng):
                                np.asarray(want[0], np.float32), atol=2e-2, rtol=2e-2)
     for g, w in zip(got[1:], want[1:]):
         assert _rel(g.numpy(), w) < 1e-5
+
+
+def _slices(T, k, S, head):
+    """Each rank's (lo, hi, a0) as the kernels' `slice_of` computes them
+    (csrc/adain_snake.cu) for a row whose first 16-byte boundary is `head`
+    elements in: [lo, hi) is the rank's part of the row, a0 the start of its
+    aligned middle."""
+    head = min(T, head)
+    out = []
+    for r in range(k):
+        lo = 0 if r == 0 else min(T, head + r * S)
+        hi = T if r == k - 1 else min(T, head + (r + 1) * S)
+        out.append((lo, hi, head if r == 0 else lo))
+    return out
+
+
+# every shape the main paths give K1 and K2 (chip_smoke.py's cases), and a
+# row too long for the cluster's shared memory
+PLAN_CASES = sorted({(shape, False) for shape, _ in chip_smoke.KERNEL_CASES}
+                    | {(shape, True) for shape, _ in chip_smoke.BWD_CASES}) + [((1, 32, 480000), False)]
+# an H100 SXM's room: 132 SMs; 227 KB of shared memory per block and 228 KB
+# per SM, 1 KB of which each block reserves; up to 512 bytes of the kernels'
+# own (static) shared memory
+H100 = Limits(sms=132, block=227 * 1024 - 512, pair=228 * 1024 // 2 - 1024 - 512)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,backward", PLAN_CASES)
+def test_plan(shape, backward, dtype):
+    """The launch plan: a cluster size that divides the grid, slices that
+    cover T exactly at every row alignment, shared memory within the
+    block's limit, at least one block per SM for an utterance's rows at
+    B = 1, and streaming where the slice cannot fit."""
+    B, C, T = shape
+    plan = _plan(B, C, T, dtype, H100, backward)
+    size = 2 if dtype == torch.bfloat16 else 4
+    vec, arrays = 16 // size, 2 if backward else 1
+    grid = B * C * plan.k
+    assert plan.k in (1, 2, 4, 8) and grid % plan.k == 0
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 512
+    assert plan.slice % vec == 0 and plan.slice * plan.k >= T > plan.slice * (plan.k - 1) - vec
+    for head in range(vec):
+        parts = _slices(T, plan.k, plan.slice, head)
+        assert parts[0][0] == 0 and parts[-1][1] == T
+        assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+        for lo, hi, a0 in parts:
+            middle = (hi - a0) // vec * vec
+            assert lo <= a0 <= hi and a0 - lo < vec and hi - a0 - middle < vec
+            assert a0 == T or (a0 - min(T, head)) % vec == 0  # on a 16-byte boundary
+            assert middle <= plan.slice  # the shared memory holds it
+    assert plan.smem <= H100.block
+    if plan.smem:
+        assert plan.smem == arrays * plan.slice * size
+    else:
+        assert arrays * plan.slice * size > H100.block and plan.k == 8
+    if B == 1 and T >= 4000:  # a single utterance's decoder rows fill the SMs
+        assert grid >= H100.sms
+    if shape == (1, 32, 480000):
+        assert (plan.smem == 0) == (dtype == torch.float32)
+    assert _plan(B, C, T, dtype, H100, backward, 4).k == 4  # a forced k is taken

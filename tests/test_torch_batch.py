@@ -26,7 +26,8 @@ def test_inference_batch_matches_jax():
     jcfg = jax_ms_cfg()
     _, params = jax_models_and_params(jcfg, seed=31)
     jsyn = JaxSynthesizer(jcfg, params=params)
-    psyn = Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params, port_cfg(jcfg)))
+    psyn = Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params, port_cfg(jcfg)),
+                       device="cpu")
     refs = np.random.default_rng(32).standard_normal((3, 2 * psyn.style_dim)).astype(np.float32)
     lengths = []
     run = psyn._run
@@ -55,7 +56,7 @@ def test_batch_rows_are_independent_of_order():
     from styletts2_tpu_torch.inference import Synthesizer
 
     jcfg = jax_ms_cfg()
-    psyn = Synthesizer(port_cfg(jcfg), seed=33)
+    psyn = Synthesizer(port_cfg(jcfg), seed=33, device="cpu")
     refs = np.random.default_rng(34).standard_normal((3, 2 * psyn.style_dim)).astype(np.float32)
     with zero_noise():
         a = psyn.inference_batch(TEXTS, ref_s=refs, diffusion_steps=3, speed=8.0)

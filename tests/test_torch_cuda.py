@@ -17,14 +17,17 @@ one bf16 rounding of an O(1) value (2e-2).
 import pytest
 import torch
 
-from styletts2_tpu_torch.ops.adain_snake import adain_snake, adain_snake_bwd_ref, adain_snake_ref
+from styletts2_tpu_torch.ops.adain_snake import (_forward_kernel, _limits, adain_snake,
+                                                 adain_snake_bwd, adain_snake_bwd_ref,
+                                                 adain_snake_ref, plan_of)
 
 pytestmark = pytest.mark.gpu
 
 # the iSTFTNet path's stage-0 and stage-1 shapes at an 8 s utterance, the
 # HiFi-GAN path's four stages at an 8 s utterance (F = 320 frames: 20F,
 # 100F, 300F, 600F) and its last stage batched by the server, the JAX
-# tests' cases, odd T below 64 and T = 1
+# tests' cases, odd T below 64, T = 1, rows that stream from global memory
+# (their slices exceed shared memory; the second with odd T) and bf16 at k = 8
 CASES = [
     ((1, 256, 8000), torch.float32),
     ((1, 128, 48001), torch.float32),
@@ -38,6 +41,9 @@ CASES = [
     ((2, 256, 160), torch.bfloat16),
     ((2, 100, 37), torch.float32),
     ((2, 3, 1), torch.float32),
+    ((1, 32, 480000), torch.float32),
+    ((1, 8, 480001), torch.float32),
+    ((1, 32, 192000), torch.bfloat16),
 ]
 
 
@@ -50,14 +56,21 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("shape,dtype", CASES)
-def test_kernel_matches_plain(cuda, shape, dtype):
+def _inputs(shape, dtype, cuda, seed):
+    """Seeded (x, gamma, beta, alpha, dy) on the card for x of `shape`."""
     B, C, T = shape
-    g = torch.Generator(cuda).manual_seed(0)
+    g = torch.Generator(cuda).manual_seed(seed)
     x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
     gamma = torch.randn((B, C), generator=g, device=cuda) * 0.1
     beta = torch.randn((B, C), generator=g, device=cuda) * 0.1
     alpha = torch.rand((C,), generator=g, device=cuda) + 0.5
+    dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    return x, gamma, beta, alpha, dy
+
+
+@pytest.mark.parametrize("shape,dtype", CASES)
+def test_kernel_matches_plain(cuda, shape, dtype):
+    x, gamma, beta, alpha, _ = _inputs(shape, dtype, cuda, 0)
     with torch.inference_mode():
         before = adain_snake.launches
         got = adain_snake(x, gamma, beta, alpha)
@@ -79,15 +92,22 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         adain_snake(x.half(), p, p, a)
     with pytest.raises(ValueError):
         adain_snake(x, p, p, torch.ones(3, device=cuda))
+    shifted = torch.randn(4 * 16 + 1, device=cuda)[1:].view(1, 4, 16)  # contiguous, 4 bytes in
+    with pytest.raises(ValueError):
+        adain_snake(shifted, p, p, a)  # not on a 16-byte boundary
+    want = adain_snake_ref(shifted, p, p, a)
+    torch.testing.assert_close(adain_snake(shifted.clone(), p, p, a), want, atol=1e-4, rtol=1e-4)
 
 
 # the stage-1 training shapes at batch 16 and a 200-frame clip (the
-# Generator's 256- and 128-channel stages), an odd small shape and bf16
+# Generator's 256- and 128-channel stages), an odd small shape, bf16 and a
+# row that streams from global memory with odd T
 BWD_CASES = [
     ((16, 256, 4000), torch.float32),
     ((16, 128, 24001), torch.float32),
     ((2, 100, 37), torch.float32),
     ((2, 256, 160), torch.bfloat16),
+    ((1, 16, 240001), torch.float32),
 ]
 
 
@@ -99,13 +119,7 @@ def _close(got, want, dtype):
 
 @pytest.mark.parametrize("shape,dtype", BWD_CASES)
 def test_backward_kernel_matches_plain(cuda, shape, dtype):
-    B, C, T = shape
-    g = torch.Generator(cuda).manual_seed(1)
-    x = (torch.randn(shape, generator=g, device=cuda) * 2 + 0.5).to(dtype)
-    gamma = torch.randn((B, C), generator=g, device=cuda) * 0.1
-    beta = torch.randn((B, C), generator=g, device=cuda) * 0.1
-    alpha = torch.rand((C,), generator=g, device=cuda) + 0.5
-    dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    x, gamma, beta, alpha, dy = _inputs(shape, dtype, cuda, 1)
     leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta, alpha)]
     fwd, bwd = adain_snake.launches, adain_snake.bwd_launches
     y = adain_snake(*leaves)
@@ -122,8 +136,6 @@ def test_backward_kernel_matches_plain(cuda, shape, dtype):
 
 
 def test_backward_kernel_rejects_what_it_cannot_take(cuda):
-    from styletts2_tpu_torch.ops.adain_snake import adain_snake_bwd
-
     x = torch.randn((1, 4, 16), device=cuda)
     p = torch.zeros((1, 4), device=cuda)
     a = torch.ones(4, device=cuda)
@@ -131,3 +143,57 @@ def test_backward_kernel_rejects_what_it_cannot_take(cuda):
         adain_snake_bwd(x, p, p, a, torch.randn((1, 16, 4), device=cuda).transpose(1, 2))
     with pytest.raises(ValueError):
         adain_snake_bwd(x, p, p, a, torch.randn((1, 4, 16), device=cuda).bfloat16())
+    shifted = torch.randn(4 * 16 + 2, device=cuda)[2:].view(1, 4, 16)  # 8 bytes in
+    with pytest.raises(ValueError):
+        adain_snake_bwd(x, p, p, a, shifted)
+    with pytest.raises(ValueError):
+        adain_snake_bwd(shifted, p, p, a, x)
+
+
+def test_limits_are_the_cards(cuda):
+    """The plan's room is read from the card: its SMs, and shared memory
+    within its per-block and per-SM limits."""
+    props = torch.cuda.get_device_properties(cuda)
+    lim = _limits(torch.cuda.current_device())
+    assert lim.sms == props.multi_processor_count
+    assert 0 < lim.pair < lim.block <= 227 * 1024  # Hopper's opt-in limit per block
+
+
+# the ragged edges of a row split over a cluster of k blocks, k forced: odd T,
+# not divisible by k, at every k; T < 16, so that ranks past the row's end
+# have empty slices; bf16 at k = 8
+SPLIT_CASES = [((2, 5, 1001), torch.float32, k) for k in (1, 2, 4, 8)] + [
+    ((1, 3, 13), torch.float32, 8),
+    ((2, 4, 5), torch.float32, 4),
+    ((2, 5, 1001), torch.bfloat16, 8),
+]
+
+
+@pytest.mark.parametrize("shape,dtype,k", SPLIT_CASES)
+def test_split_rows_match_plain(cuda, shape, dtype, k):
+    x, gamma, beta, alpha, dy = _inputs(shape, dtype, cuda, 2)
+    assert plan_of(x, k=k).k == k
+    got = _forward_kernel(x, gamma, beta, alpha, k=k)
+    grads = adain_snake_bwd(x, gamma, beta, alpha, dy, k=k)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), adain_snake_ref(x, gamma, beta, alpha).float(),
+                               atol=tol, rtol=tol)
+    for name, kern, plain in zip(("dx", "dgamma", "dbeta", "dalpha"), grads,
+                                 adain_snake_bwd_ref(x, gamma, beta, alpha, dy)):
+        assert kern.dtype == plain.dtype and kern.shape == plain.shape, name
+        _close(kern, plain, kern.dtype)
+
+
+# a row split over 8 blocks (HiFi-GAN's last stage), over 2 with odd T
+# (iSTFTNet's stage 1; K2 at the training shape), and one block per row
+@pytest.mark.parametrize("shape", [(1, 32, 192000), (1, 128, 48001), (16, 128, 24001), (2, 256, 6400)])
+def test_kernels_are_deterministic(cuda, shape):
+    """Two launches on the same input give the same bits: the cluster's
+    partials merge in rank order, with no atomics."""
+    x, gamma, beta, alpha, dy = _inputs(shape, torch.float32, cuda, 3)
+    with torch.inference_mode():
+        assert torch.equal(adain_snake(x, gamma, beta, alpha), adain_snake(x, gamma, beta, alpha))
+    first, second = (adain_snake_bwd(x, gamma, beta, alpha, dy) for _ in range(2))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

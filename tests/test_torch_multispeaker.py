@@ -33,7 +33,8 @@ def setup():
     jcfg = jax_ms_cfg()
     _, params = jax_models_and_params(jcfg, seed=21)
     jsyn = JaxSynthesizer(jcfg, params=params)
-    psyn = Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params, port_cfg(jcfg)))
+    psyn = Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params, port_cfg(jcfg)),
+                       device="cpu")
     n = np.arange(48000)  # 2 s reference voice: harmonics plus noise
     wave = (0.3 * np.sin(2 * np.pi * 150.0 * n / 24000) + 0.1 * np.sin(2 * np.pi * 450.0 * n / 24000)
             + 0.02 * np.random.default_rng(22).standard_normal(n.size)).astype(np.float32)

@@ -159,7 +159,7 @@ def test_http_end_to_end_tiny_model(tmp_path):
     sum(durations) * 600 - 50 samples and share one batch."""
     from styletts2_tpu_torch.inference import Synthesizer
 
-    syn = Synthesizer(_tiny_libritts(), seed=0)
+    syn = Synthesizer(_tiny_libritts(), seed=0, device="cpu")
     n = np.arange(33075)  # 1.5 s at 22.05 kHz, resampled to 24 kHz
     pcm = (0.3 * np.sin(2 * np.pi * 150.0 * n / 22050) * 32767).astype(np.int16)
     with wave.open(str(tmp_path / "anna.wav"), "wb") as f:
@@ -214,7 +214,7 @@ def test_load_synthesizer_checkpoint_and_device(tmp_path):
         "plbert_params:\n  num_hidden_layers: 1\n  hidden_size: 64\n  intermediate_size: 128\n"
         "  num_attention_heads: 2\n")
     assert load_config(str(cfg_path)) == cfg
-    src = Synthesizer(cfg, seed=5)
+    src = Synthesizer(cfg, seed=5, device="cpu")
     net = {}
     for name, v in src.models.state_dict().items():
         mod, rest = name.split(".", 1)

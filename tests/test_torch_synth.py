@@ -1,6 +1,7 @@
 """The port's synthesis path as a whole: its config defaults, the weight
 conversion round trip, `Synthesizer.inference` against the JAX Synthesizer,
-the port's import boundary and chip_smoke.py's refusal without a card.
+the port's import boundary, the card as `Synthesizer`'s default device and
+chip_smoke.py's refusal without a card.
 
 Tolerances of the end-to-end comparison: the integer durations must be
 equal; the style s_pred within 1e-4 of its peak (text encoders and 5
@@ -99,7 +100,8 @@ def test_synthesizer_matches_jax(setup):
         return run
 
     jsyn._get_phase_b = spy
-    psyn = Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params, port_cfg(jcfg)))
+    psyn = Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params, port_cfg(jcfg)),
+                       device="cpu")
     with zero_noise(), stable_har_phase():
         want_wav, want_s = jsyn.inference(TEXT, noise=noise, speed=4.0)
         got = psyn.synthesize(TEXT, noise=noise, speed=4.0)
@@ -118,7 +120,8 @@ def test_last_token_pad_follows_the_option(setup):
     from styletts2_tpu_torch.inference import Synthesizer
 
     jcfg, params = setup
-    psyn = Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params, port_cfg(jcfg)))
+    psyn = Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params, port_cfg(jcfg)),
+                       device="cpu")
     kw = dict(diffusion_steps=3, speed=4.0, seed=1)
     padded = psyn.synthesize(TEXT, **kw)
     plain = psyn.synthesize(TEXT, pad_last_token=False, **kw)
@@ -158,7 +161,7 @@ for cfg in (Config(), libritts_config()):
     cfg.model_params.dim_in = 16
     cfg.model_params.diffusion.transformer.num_layers = 1
     cfg.model_params.decoder.upsample_initial_channel = 64
-    syn = Synthesizer(cfg, seed=0)
+    syn = Synthesizer(cfg, seed=0, device="cpu")
     ref = syn.compute_style(np.sin(np.arange(30000) / 20.0)) if syn.multispeaker else None
     wav, s = syn.inference("hˈɛloʊ.", ref_s=ref, diffusion_steps=3, speed=8.0)
     assert wav.ndim == 1 and len(wav) > 0 and np.isfinite(wav).all() and s.shape == (1, 64)
@@ -169,6 +172,19 @@ print("BAD", bad)
     res = _run(code, REPO)
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
+
+
+def test_synthesizer_defaults_to_the_card(monkeypatch):
+    """A Synthesizer built without a device runs on the card: where there is
+    none it raises rather than running on the CPU."""
+    import torch
+
+    from styletts2_tpu_torch.config import Config
+    from styletts2_tpu_torch.inference import Synthesizer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Synthesizer(Config(), seed=0)
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
