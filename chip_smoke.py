@@ -51,6 +51,24 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      on the card and on the CPU (eval mode, draws from the host, the source's
      STFT phase zeroed), before TMA on the soft alignment and from TMA on the
      monotonic one: the losses and every stepped module's gradient agree
+ 12. stage 2: `run_stage("second", Config(), ...)` at full width from the
+     port's own first stage (a 1-step `run_stage("first")`), on phase 10's
+     fixture: 2 steps each before diffusion, with it and joint (the
+     SLM-adversarial pass; the WavLM discriminator every 2 steps), each with
+     finite metrics, 96 K1 and 36 K2 launches (144 and 84-96 joint:
+     `_stage2_launches`), a positive
+     slm_valid_frac when joint, the predictor, PL-BERT, diffusion, decoder
+     and wd moving just when the phase steps them; 0 plain-version calls;
+     peak memory, sigma_data before and after and the line written into the
+     config copy; a second call resumes from epoch_2nd_00002.pth. Batch 16,
+     or the largest that fits (the OOM is printed)
+ 13. finetune: 2 steps of `run_stage("finetune")` on configs/config_ft.yml
+     (built without PyYAML) from phase 12's second_final.pth, weights only,
+     joint from epoch 0; the same checks
+ 14. stage-2 reference: a joint step's generator and SLM losses at reduced
+     width, the same weights on the card and on the CPU (eval mode, draws
+     from the host, the source's STFT phase zeroed): losses within 1e-4,
+     every module's gradient within 3e-2 (L2)
 Every number line carries the card's name and power limit. Then a JSON line
 of the kernels and, last, {"ok": true, "device": {...}}.
 It needs a CUDA device and the repository beside it; without either it
@@ -104,10 +122,14 @@ KERNEL_CASES = [  # (B, C, T), dtype name
     ((2, 100, 37), "float32"),  # odd T below 64
     ((16, 256, 4000), "float32"),  # stage-1 training: batch 16, a 200-frame clip
     ((16, 128, 24001), "float32"),
+    ((8, 256, 4000), "float32"),  # stage 2's SLM pass: 8 clips of 200 frames
+    ((8, 128, 24001), "float32"),
 ]
 BWD_CASES = [  # the training shapes, an odd small shape and bf16
     ((16, 256, 4000), "float32"),
     ((16, 128, 24001), "float32"),
+    ((8, 256, 4000), "float32"),
+    ((8, 128, 24001), "float32"),
     ((2, 100, 37), "float32"),
     ((2, 256, 160), "bfloat16"),
 ]
@@ -131,6 +153,7 @@ SMALL = {"max_len": 80, "model_params": {  # the reduced width of phase 11
     "decoder": {"upsample_initial_channel": 64, "resblock_kernel_sizes": [3],
                 "resblock_dilation_sizes": [[1, 3]]}}}
 GRAD_TOL = 3e-2  # L2 of the gradient difference over its norm, per module
+STAGE2_BATCHES = (16, 12, 8)  # phase 12 runs at the first that fits the card
 REPO = Path(__file__).resolve().parent
 
 
@@ -505,7 +528,7 @@ def backward_phase(op, dev, smi):
                 f"(tol {TOL[dt]:g} of each peak, and against autograd); repeat bit-equal")
         if dt == "float32":
             bwd_err = max(bwd_err, float((got[0] - plain[0]).abs().max()))
-        if (shape, dt) in BWD_CASES and shape[0] == 16:  # the training shapes
+        if (shape, dt) in BWD_CASES and shape[2] >= 4000:  # the training shapes
             nbytes = 2 * args[0].numel() * args[0].element_size()
             bound = bound_ms(shape, dt, backward=True)
             fns = (op.adain_snake_bwd_ref, op.adain_snake_bwd)
@@ -549,13 +572,13 @@ def training_phase(op, build_dir, smi):
                 return fn(*a, **k)
             return call
 
-        def timed_step(self, batch, epoch, rng):
+        def timed_step(self, batch, epoch, iters, rng):
             if not before:
                 before.update({n: p.detach().clone() for n, p in
                                self.models["decoder"].named_parameters()})
             k1, k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
             t0 = time.perf_counter()
-            m = train_step(self, batch, epoch, rng)  # ends in a host sync (the metrics)
+            m = train_step(self, batch, epoch, iters, rng)  # ends in a host sync (the metrics)
             steps.append({"epoch": epoch, "ms": (time.perf_counter() - t0) * 1e3, "metrics": m,
                           "k1": op.adain_snake.launches - k1, "k2": op.adain_snake.bwd_launches - k2})
             return m
@@ -655,6 +678,253 @@ def training_reference_phase(dev):
               flush=True)
         if not (l_err < 1e-4 and max(g_err.values()) < GRAD_TOL):
             raise RuntimeError("stage-1 step: GPU and CPU disagree")
+    del cpu_models, gpu_models
+
+
+def _flat(module):
+    """The module's parameters, flattened into one host tensor: a snapshot
+    that takes no device memory from the step it brackets."""
+    return torch.cat([p.detach().flatten().cpu() for p in module.parameters()])
+
+
+def _moves(cfg, epoch, iters, finetune=False):
+    """{module: whether a stage-2 step of `epoch` (the run's `iters`-th)
+    steps it} for the modules phases 12-13 watch."""
+    lp = cfg.loss_params
+    diff_on, joint_on = epoch >= lp.diff_epoch, epoch >= lp.joint_epoch
+    return {"predictor": True, "bert": True, "diffusion": diff_on,
+            "decoder": joint_on or finetune,
+            "wd": joint_on and (iters + 1) % cfg.slmadv_params.iter == 0}
+
+
+def _stage2_launches(joint, decoder_trained, slm_sampled):
+    """(K1, K2) of a stage-2 step: 48 K1 per decoder run (y_rec_gt_pred,
+    y_rec, and when joint the SLM pass's y_pred); K2 per run that takes a
+    gradient (y_rec, y_pred): 48 where the noise branch takes one too, 36
+    where it does not. The noise branch (one AdaINResBlock1 per upsampling
+    stage, 12 launches) sees only the detached harmonic source, its own
+    weights and the style: it takes a gradient where the decoder is trained
+    or the style is (the SLM pass's sampled style), as in JAX's VJP."""
+    k2 = 48 if decoder_trained else 36
+    if joint:
+        k2 += 48 if slm_sampled else 36
+    return 48 * (3 if joint else 2), k2
+
+
+def _stage2_run(op, stage, cfg, smi, tag, **kwargs):
+    """`run_stage(stage, cfg, device="cuda", **kwargs)` with every step
+    timed and checked: finite metrics, K1/K2 launches as the phase's decoder
+    runs make them (48 K1 each, 48 K2 each that takes a gradient), a
+    positive slm_valid_frac in joint steps, the watched modules moving just
+    when the phase steps them; then 48 K1 per validation batch and 0
+    plain-version calls over the run. Returns (the steps, the final state's
+    sigma_data, the peak memory, K1 and K2 launches, the train.log text)."""
+    from styletts2_tpu_torch.train import run as train_run
+    from styletts2_tpu_torch.train.stage2 import Stage2Trainer
+
+    steps, train_step, validate = [], Stage2Trainer.train_step, Stage2Trainer.validate
+    plain, n_val = [0], [0]
+    fwd_ref, bwd_ref = op.adain_snake_ref, op.adain_snake_bwd_ref
+
+    def counted(fn):
+        def call(*a, **k):
+            plain[0] += 1
+            return fn(*a, **k)
+        return call
+
+    def timed_step(self, batch, epoch, iters, rng):
+        watched = {k: _flat(self.models[k]) for k in ("predictor", "bert", "diffusion", "decoder", "wd")}
+        k1, k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
+        t0 = time.perf_counter()
+        m = train_step(self, batch, epoch, iters, rng)  # ends in a host sync (the metrics)
+        ms = (time.perf_counter() - t0) * 1e3
+        moved = {k: not torch.equal(v, _flat(self.models[k])) for k, v in watched.items()}
+        del watched
+        steps.append({"epoch": epoch, "iters": iters, "ms": ms, "metrics": m, "moved": moved,
+                      "k1": op.adain_snake.launches - k1, "k2": op.adain_snake.bwd_launches - k2,
+                      "batch": len(batch.mel_lengths)})
+        return m
+
+    def counted_validate(self, batch, rng):
+        out = validate(self, batch, rng)
+        n_val[0] += out is not None
+        return out
+
+    Stage2Trainer.train_step, Stage2Trainer.validate = timed_step, counted_validate
+    op.adain_snake_ref, op.adain_snake_bwd_ref = counted(fwd_ref), counted(bwd_ref)
+    torch.cuda.reset_peak_memory_stats()
+    op.adain_snake.launches = op.adain_snake.bwd_launches = 0
+    try:
+        state = train_run.run_stage(stage, cfg, device="cuda", **kwargs)
+        sigma = state.sigma_data
+        del state
+    finally:
+        Stage2Trainer.train_step, Stage2Trainer.validate = train_step, validate
+        op.adain_snake_ref, op.adain_snake_bwd_ref = fwd_ref, bwd_ref
+    peak = torch.cuda.max_memory_allocated()
+    k1, k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
+    torch.cuda.empty_cache()
+    log = (Path(cfg.log_dir) / "train.log").read_text()
+    for i, st in enumerate(steps):
+        m, lp = st["metrics"], cfg.loss_params
+        joint = st["epoch"] >= lp.joint_epoch
+        phase = "joint" if joint else "diffusion" if st["epoch"] >= lp.diff_epoch else "pre-diffusion"
+        want = _stage2_launches(joint, joint or stage == "finetune", m and m.get("slm_sampled"))
+        expect = _moves(cfg, st["epoch"], st["iters"], stage == "finetune")
+        print(f"[{tag}] step {i} (epoch {st['epoch']}, {phase}, batch {st['batch']}): {st['ms']:.1f} ms; "
+              f"launches K1 {st['k1']} K2 {st['k2']}; moved {sorted(k for k, v in st['moved'].items() if v)}; "
+              + " ".join(f"{k}={v:.4f}" for k, v in (m or {}).items()) + f" [{smi}]", flush=True)
+        if m is None or not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"{tag} step {i}: metrics {m}")
+        if (st["k1"], st["k2"]) != want:
+            raise RuntimeError(f"{tag} step {i}: K1 {st['k1']} K2 {st['k2']}, not {want}")
+        if joint and not m["slm_valid_frac"] > 0:
+            raise RuntimeError(f"{tag} step {i}: slm_valid_frac {m['slm_valid_frac']}")
+        if st["moved"] != expect:
+            raise RuntimeError(f"{tag} step {i}: moved {st['moved']}, expected {expect}")
+    if plain[0] or k1 != sum(st["k1"] for st in steps) + 48 * n_val[0] or \
+            k2 != sum(st["k2"] for st in steps):
+        raise RuntimeError(f"{tag}: {k1} K1 / {k2} K2 launches for {len(steps)} steps and "
+                           f"{n_val[0]} validation batches, {plain[0]} plain calls")
+    return steps, sigma, peak, k1, k2, log
+
+
+def stage2_phase(op, build_dir, smi):
+    """Phases 12 and 13: stage 2 at full width through `run_stage` from the
+    port's own first stage, a resumed call, then finetuning from its
+    weights. Returns the K1 and K2 launches of all their calls."""
+    from styletts2_tpu_torch.config import Config, config_from_path
+    from styletts2_tpu_torch.train import run as train_run
+
+    with tempfile.TemporaryDirectory(dir=build_dir) as tdir:
+        data = training_fixture(Path(tdir) / "data")
+        for batch in STAGE2_BATCHES:  # the largest batch the card holds
+            cfg = Config()
+            cfg.data_params, cfg.batch_size, cfg.log_interval = data, batch, 1
+            cfg.log_dir = str(Path(tdir) / f"logs_{batch}")
+            cfg.epochs_1st, cfg.epochs_2nd, cfg.slmadv_params.iter = 1, 3, 2
+            cfg.loss_params.diff_epoch, cfg.loss_params.joint_epoch = 1, 2
+            try:
+                train_run.run_stage("first", cfg, max_steps=1, device="cuda")  # the handoff
+                t0 = time.perf_counter()
+                steps, sigma, peak, k1, k2, log = _stage2_run(op, "second", cfg, smi, "12 stage 2")
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                oom = str(e).splitlines()[0]
+            torch.cuda.empty_cache()  # after the failed attempt's frames are gone
+            print(f"[12 stage 2] batch {batch}: {oom}; trying a smaller batch [{smi}]", flush=True)
+        else:
+            raise RuntimeError("stage 2: no batch fits the card")
+        wall = time.perf_counter() - t0
+        launches = [k1, k2]
+        phases = [st["epoch"] for st in steps]
+        if phases != [0, 0, 1, 1, 2, 2] or not steps[-1]["moved"]["wd"]:
+            raise RuntimeError(f"stage 2: epochs {phases}, wd moved {[st['moved']['wd'] for st in steps]}")
+        written = [x for x in log.splitlines() if "sigma_data" in x and "written into" in x]
+        if "loaded first stage" not in log or not written or \
+                not (0 < sigma != cfg.model_params.diffusion.dist.sigma_data):
+            raise RuntimeError(f"stage 2: handoff or sigma_data write-back missing ({sigma}, {written})")
+        print(f"[12 stage 2] run_stage('second', Config()) from the port's first stage: batch "
+              f"{cfg.batch_size}, max_len {cfg.max_len}, {len(steps)} steps in {wall:.1f} s wall; "
+              f"peak memory {peak / 2 ** 30:.2f} GiB; sigma_data {cfg.model_params.diffusion.dist.sigma_data}"
+              f" -> {sigma!r}; config copy: {written[-1].split(': ', 2)[-1]}; launches K1 {k1} "
+              f"K2 {k2}, 0 plain-version calls [{smi}]", flush=True)
+
+        # the resumed call: epoch 2 again, one step
+        steps, _, _, k1, k2, log = _stage2_run(op, "second", cfg, smi, "12 stage 2 resumed",
+                                               max_steps=1)
+        launches = [launches[0] + k1, launches[1] + k2]
+        resume = [x for x in log.splitlines() if "auto-resuming from" in x]
+        if not resume or "epoch_2nd_00002.pth (epoch 2)" not in resume[-1] or len(steps) != 1:
+            raise RuntimeError(f"stage 2 resume: {resume}, {len(steps)} steps")
+        print(f"[12 stage 2] {resume[-1].split(': ', 1)[-1]}; then 1 joint step", flush=True)
+
+        # 13. finetune from stage 2's weights
+        ft = config_from_path(str(REPO / "configs" / "config_ft.yml"))
+        ft.data_params, ft.log_interval, ft.log_dir = data, 1, str(Path(tdir) / "ft")
+        ft.pretrained_model = str(Path(cfg.log_dir) / "second_final.pth")
+        ft.load_only_params, ft.loss_params.joint_epoch = True, 0
+        t0 = time.perf_counter()
+        steps, sigma, peak, k1, k2, log = _stage2_run(op, "finetune", ft, smi, "13 finetune",
+                                                      max_steps=2)
+        launches = [launches[0] + k1, launches[1] + k2]
+        if len(steps) != 2 or f"loaded {ft.pretrained_model} (weights only)" not in log:
+            raise RuntimeError(f"finetune: {len(steps)} steps; log {log[-500:]}")
+        print(f"[13 finetune] run_stage('finetune', configs/config_ft.yml) from second_final.pth "
+              f"(weights only): batch {ft.batch_size}, 2 steps in {time.perf_counter() - t0:.1f} s "
+              f"wall; peak memory {peak / 2 ** 30:.2f} GiB; sigma_data -> {sigma!r}; launches K1 {k1} "
+              f"K2 {k2}, 0 plain-version calls [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _stage2_losses_and_grads(models, cfg, device, batch, starts):
+    """A joint stage-2 step's generator loss (no adversarial term) and SLM
+    generator loss with their backward, eval mode: (losses, {module:
+    flattened gradient on the host}). The LSTMs alone run in train mode
+    (cuDNN's LSTM backward needs it; one layer, no dropout)."""
+    from styletts2_tpu_torch.train.stage2 import SLM_KEYS, Stage2Trainer
+    from styletts2_tpu_torch.train.state import TrainState
+
+    trainer = Stage2Trainer(cfg, TrainState(models, {}, sigma_data=0.2), device)
+    keys = trainer.gen_keys(True, True)
+
+    def modes(trainable):
+        trainer._modes(False, trainable)
+        for m in models.values():
+            m.zero_grad(set_to_none=True)
+            for lstm in m.modules():
+                if isinstance(lstm, torch.nn.LSTM):
+                    lstm.train()
+
+    def grads(ks):
+        return {k: torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).detach().flatten()
+                              for n, p in models[k].named_parameters() if "bias_hh" not in n]).cpu()
+                for k in ks}
+
+    modes(keys)
+    t = trainer._tensors(batch)
+    g_loss, _, metrics, aux = trainer.generator_forward(t, starts, starts, 40, True, True, 3, 0.2,
+                                                        train=False)
+    g_loss.backward()
+    losses = {k: float(v.detach()) for k, v in metrics.items()}
+    out = {f"gen {k}": g for k, g in grads(keys).items()}
+    modes(SLM_KEYS)
+    slm, _, valid = trainer.slm_generator_loss(t, aux, 3, False, 0.2)
+    slm.backward()
+    losses["slm_gen"] = float(slm.detach())
+    out.update({f"slm {k}": g for k, g in grads(SLM_KEYS).items()})
+    if not bool(valid.all()):
+        raise RuntimeError(f"stage-2 reference: SLM validity {valid.tolist()}")
+    return losses, out
+
+
+def stage2_reference_phase(dev):
+    """Phase 14: a joint stage-2 step at reduced width, the same weights on
+    the card and on the CPU."""
+    from styletts2_tpu_torch.config import Config
+    from styletts2_tpu_torch.models.build import build_training_models
+
+    small = Config.from_dict(dict(SMALL, slmadv_params={"min_len": 80, "max_len": 120}))
+    cpu_models = build_training_models(small, torch.Generator().manual_seed(0), stage="second")
+    gpu_models = copy.deepcopy(cpu_models).to(dev)
+    rng = np.random.default_rng(3)
+    waves = (0.2 * rng.standard_normal((2, 48000))).astype(np.float32)
+    batch = types.SimpleNamespace(
+        waves=waves, tokens=rng.integers(1, 178, (2, 12)).astype(np.int32),
+        input_lengths=np.asarray([12, 9]), mel_lengths=np.asarray([160, 140]),
+        ref_tokens=rng.integers(1, 178, (2, 10)).astype(np.int32), ref_lengths=np.asarray([10, 7]),
+        ref_waves=waves, ref_wave_lengths=np.asarray([48000, 48000]))
+    starts = np.asarray([3, 5])
+    got_l, got_g = _host_draws(_stage2_losses_and_grads, gpu_models, small, dev, batch, starts)
+    want_l, want_g = _host_draws(_stage2_losses_and_grads, cpu_models, small, "cpu", batch, starts)
+    l_err = max(abs(got_l[k] - v) / abs(v) for k, v in want_l.items())
+    g_err = {k: float((got_g[k] - v).norm() / v.norm()) for k, v in want_g.items()}
+    print("[14 stage-2 reference] joint step: losses " + " ".join(f"{k}={v:.5f}" for k, v in got_l.items())
+          + f"; rel err {l_err:.2e} (tol 1e-4); gradient L2 rel err "
+          + ", ".join(f"{k} {e:.2e}" for k, e in g_err.items()) + f" (tol {GRAD_TOL:g})", flush=True)
+    if not (l_err < 1e-4 and max(g_err.values()) < GRAD_TOL):
+        raise RuntimeError("stage-2 step: GPU and CPU disagree")
     del cpu_models, gpu_models
 
 
@@ -854,6 +1124,8 @@ def main():
     bwd_err, bwd_timings = backward_phase(op, dev, smi)  # 9
     train_k1, train_k2 = training_phase(op, build_dir, smi)  # 10
     training_reference_phase(dev)  # 11
+    stage2_k1, stage2_k2 = stage2_phase(op, build_dir, smi)  # 12, 13
+    stage2_reference_phase(dev)  # 14
 
     fwd_shape, bwd_shape = (8, 32, 192000), (16, 128, 24001)  # a server batch's last stage; training
     fwd, bwd = timings[fwd_shape], bwd_timings[bwd_shape]
@@ -861,14 +1133,15 @@ def main():
         "name": "adain_snake", "route": "cuda",
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:38",
-        "launches": lj.launches + lt.launches + sv.launches + train_k1, "max_abs_err": max_err,
+        "launches": lj.launches + lt.launches + sv.launches + train_k1 + stage2_k1,
+        "max_abs_err": max_err,
         "ms": fwd["cold"][0], "plain_ms": fwd["cold"][1], "bound_ms": fwd["bound"],
         "bound_by": "bytes", "library_ms": None, "shape": list(fwd_shape),
     }, {
         "name": "adain_snake_bwd", "route": "cuda",
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:117",
-        "launches": train_k2, "max_abs_err": bwd_err, "ms": bwd["cold"][0],
+        "launches": train_k2 + stage2_k2, "max_abs_err": bwd_err, "ms": bwd["cold"][0],
         "plain_ms": bwd["cold"][1], "bound_ms": bwd["bound"], "bound_by": "bytes",
         "library_ms": None, "shape": list(bwd_shape),
     }]}))

@@ -1,9 +1,10 @@
-"""The configuration fields the synthesis path and the stage-1 trainer read.
+"""The configuration fields the synthesis path and the trainers read.
 
 `Config()` equals `configs/config.yml` (single-speaker LJSpeech, iSTFTNet
-decoder) and `libritts_config()` equals `configs/config_libritts.yml`
-(zero-shot multispeaker, HiFi-GAN decoder), so a machine without PyYAML
-can build either; `config_from_path` builds those two files without
+decoder), `libritts_config()` equals `configs/config_libritts.yml`
+(zero-shot multispeaker, HiFi-GAN decoder) and `finetune_config()` equals
+`configs/config_ft.yml` (LJSpeech finetuning), so a machine without PyYAML
+can build each; `config_from_path` builds those three files without
 reading them. Unknown keys in a loaded YAML file are ignored, so the
 reference-format configs load unchanged. PyYAML is imported only inside
 `load_config`.
@@ -42,10 +43,26 @@ class DiffusionTransformerParams:
 
 
 @dataclass
+class DiffusionDistParams:
+    """The EDM training noise: log sigma ~ N(mean, std); sigma_data, the
+    data scale of the preconditioning, re-estimated from each stage-2 batch
+    when estimate_sigma_data."""
+
+    sigma_data: float = 0.2
+    estimate_sigma_data: bool = True
+    mean: float = -3.0
+    std: float = 1.0
+
+
+@dataclass
 class DiffusionParams:
+    # in training, the share of items whose PL-BERT embedding the denoiser
+    # swaps for its fixed (unconditional) one
+    embedding_mask_proba: float = 0.1
     transformer: DiffusionTransformerParams = field(
         default_factory=DiffusionTransformerParams
     )
+    dist: DiffusionDistParams = field(default_factory=DiffusionDistParams)
 
 
 @dataclass
@@ -69,7 +86,7 @@ class ModelParams:
     n_token: int = 178
     max_dur: int = 50
     style_dim: int = 128
-    dropout: float = 0.2  # the text encoder's dropout in training
+    dropout: float = 0.2  # the text encoder's and the prosody predictor's dropout in training
     decoder: DecoderParams = field(default_factory=DecoderParams)
     slm: SLMParams = field(default_factory=SLMParams)
     diffusion: DiffusionParams = field(default_factory=DiffusionParams)
@@ -125,6 +142,24 @@ class OptimizerParams:
 
 
 @dataclass
+class SLMAdvParams:
+    """Stage 2's SLM-adversarial pass: clips of min_len // 2 frames decoded
+    from alignments of max_len frames, batch_percentage of the batch, the
+    WavLM discriminator stepped every `iter` steps; the pass's gradients are
+    divided by the predictor's norm above `thresh`, and those of the
+    duration head and the diffusion model scaled by `scale`; `sig` is the
+    soft alignment's Gaussian width."""
+
+    min_len: int = 400
+    max_len: int = 500
+    batch_percentage: float = 0.5
+    iter: int = 10
+    thresh: int = 5
+    scale: float = 0.01
+    sig: float = 1.5
+
+
+@dataclass
 class PLBERTParams:
     """Phoneme-level ALBERT (Utils/PLBERT/config.yml model_params)."""
 
@@ -144,12 +179,19 @@ class Config:
     save_freq: int = 2
     log_interval: int = 10
     epochs_1st: int = 200
+    epochs_2nd: int = 100
     batch_size: int = 16
     max_len: int = 400  # mel frames of a training clip
     # the static clip bucket and floor, in mel-half frames (the JAX
     # package's `clip_frame_bucket`): clip = max(40, floor_40(min(half - 1,
     # max_len // 2)))
     clip_frame_bucket: int = 40
+    # finetuning starts from this stage-2 checkpoint (weights only when
+    # load_only_params); so does stage 2, in place of the first stage's
+    # handoff, when second_stage_load_pretrained and the file exists
+    pretrained_model: str = ""
+    second_stage_load_pretrained: bool = True
+    load_only_params: bool = False
     F0_path: str = "Utils/JDC/bst.t7"
     ASR_path: str = "Utils/ASR/epoch_00080.pth"
     PLBERT_dir: str = "Utils/PLBERT/"
@@ -158,6 +200,7 @@ class Config:
     model_params: ModelParams = field(default_factory=ModelParams)
     loss_params: LossParams = field(default_factory=LossParams)
     optimizer_params: OptimizerParams = field(default_factory=OptimizerParams)
+    slmadv_params: SLMAdvParams = field(default_factory=SLMAdvParams)
     plbert_params: PLBERTParams = field(default_factory=PLBERTParams)
 
     @classmethod
@@ -182,7 +225,7 @@ def libritts_config() -> Config:
     """`configs/config_libritts.yml`: multispeaker, HiFi-GAN decoder at rates
     10, 5, 3, 2, and LibriTTS's training schedule."""
     return Config(
-        log_dir="Models/LibriTTS", epochs_1st=50, max_len=300,
+        log_dir="Models/LibriTTS", epochs_1st=50, epochs_2nd=30, max_len=300,
         model_params=ModelParams(
             multispeaker=True,
             decoder=DecoderParams(type="hifigan", upsample_rates=[10, 5, 3, 2],
@@ -190,6 +233,14 @@ def libritts_config() -> Config:
         ),
         loss_params=LossParams(TMA_epoch=5, diff_epoch=10, joint_epoch=30),
     )
+
+
+def finetune_config() -> Config:
+    """`configs/config_ft.yml`: `Config()`'s model finetuned at batch 8 for 50
+    epochs, the aligner, GAN and diffusion losses from epoch 0, the joint
+    (SLM-adversarial) phase from epoch 10."""
+    return Config(log_dir="Models/Finetune", epochs_2nd=50, batch_size=8,
+                  loss_params=LossParams(TMA_epoch=0, diff_epoch=0, joint_epoch=10))
 
 
 def load_config(path: str) -> Config:
@@ -201,11 +252,12 @@ def load_config(path: str) -> Config:
 
 
 def config_from_path(path: str) -> Config:
-    """The config of a YAML file. The repository's `configs/config.yml` and
-    `configs/config_libritts.yml` are `Config()` and `libritts_config()`
-    (the tests hold them equal), so they need no PyYAML; any other file goes
-    through `load_config`."""
+    """The config of a YAML file. The repository's `configs/config.yml`,
+    `configs/config_libritts.yml` and `configs/config_ft.yml` are `Config()`,
+    `libritts_config()` and `finetune_config()` (the tests hold them equal),
+    so they need no PyYAML; any other file goes through `load_config`."""
     builtin = {REPO_CONFIGS / "config.yml": Config,
-               REPO_CONFIGS / "config_libritts.yml": libritts_config}
+               REPO_CONFIGS / "config_libritts.yml": libritts_config,
+               REPO_CONFIGS / "config_ft.yml": finetune_config}
     make = builtin.get(Path(path).resolve())
     return make() if make else load_config(path)

@@ -17,7 +17,8 @@ The stage-1 modules (`build.build_training_models`) convert as the exact
 inverse of `convert_asr`, `convert_jdc` (BatchNorm running statistics
 included; num_batches_tracked 0), `convert_mpd`, `convert_msd` and
 `convert_wavlm` (the scanned layers 1..N-1 unstacked; the positional conv's
-folded weight as the plain `weight`).
+folded weight as the plain `weight`), and stage 2's WavLM discriminator
+`wd` as the exact inverse of `convert_wd`.
 """
 
 from __future__ import annotations
@@ -302,6 +303,13 @@ def _msd(p, sd):
         _wnconv2d(p[f"r{i}"]["out"], sd, f"discriminators.{i}.out")
 
 
+def _wd(p, sd):
+    _wnconv1d(p["pre"], sd, "pre")
+    for i in range(_count(p, "conv_") - 1):  # conv_0..conv_2 and conv_post
+        _wnconv1d(p[f"conv_{i}"], sd, f"convs.{i}")
+    _wnconv1d(p["conv_post"], sd, "conv_post")
+
+
 def _wavlm_layer(p, sd, base):
     a = p["attention"]
     for name in ("q_proj", "k_proj", "v_proj", "out_proj", "gru_rel_pos_linear"):
@@ -357,6 +365,7 @@ _MODULES = {
     "mpd": _params_only(_mpd),
     "msd": _params_only(_msd),
     "wavlm": _params_only(_wavlm),
+    "wd": _params_only(_wd),
 }
 
 

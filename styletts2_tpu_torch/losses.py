@@ -1,4 +1,4 @@
-"""Stage-1 training losses (`styletts2_tpu/losses.py:50-153`,
+"""Training losses (`styletts2_tpu/losses.py:50-211`,
 `styletts2_tpu/train/stage1.py:75-84`).
 
 The multi-resolution loss is the mean over three resolutions of the mel
@@ -7,7 +7,9 @@ filterbank. The adversarial losses aggregate LSGAN, feature matching (x2)
 and the truncated pointwise relativistic loss (TPRLS, tau 0.04, with
 torch.median's lower median) over the (real, generated, real feature maps,
 generated feature maps) tuples of the MPD and the MRSD. Every loss
-accumulates in f32.
+accumulates in f32. Stage 2 adds the duration losses (binary CE on the
+duration bins, L1 on the summed durations over interior tokens), smooth L1
+for F0 and energy, and the stacking of WavLM states for its discriminator.
 """
 
 from __future__ import annotations
@@ -109,3 +111,40 @@ def s2s_ce_loss(s2s_pred, tokens, input_lengths) -> torch.Tensor:
     valid = (torch.arange(T, device=tokens.device)[None, :] < input_lengths[:, None]).float()
     per = (nll * valid).sum(dim=1) / input_lengths.clamp(min=1).float()
     return per.mean()
+
+
+def stack_wavlm_states(states: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The hidden states (B, T, H) each -> (B, T, len(states) * H), the WavLM
+    discriminator's input."""
+    return torch.cat(list(states), dim=-1)
+
+
+def duration_ce_loss(dur_logits, durations, lengths) -> torch.Tensor:
+    """Binary CE of the duration logits (B, T, max_dur) against the step
+    targets target[b, t, k] = k < durations[b, t]: the mean over the bins,
+    per sample over its valid tokens, then the batch mean."""
+    B, T, D = dur_logits.shape
+    x = dur_logits.float()
+    steps = torch.arange(D, device=x.device)[None, None, :]
+    target = (steps < durations[..., None]).float()
+    ce = x.clamp(min=0) - x * target + torch.log1p(torch.exp(-x.abs()))
+    valid = (torch.arange(T, device=x.device)[None, :] < lengths[:, None]).float()
+    per_sample = (ce.mean(dim=-1) * valid).sum(dim=1) / lengths.clamp(min=1).float()
+    return per_sample.mean()
+
+
+def duration_l1_loss(dur_pred_sum, durations, lengths) -> torch.Tensor:
+    """L1 of the summed durations (B, T) over the interior tokens 1 ..
+    len - 2 (the reference drops the boundary tokens): per sample, then the
+    batch mean."""
+    T = dur_pred_sum.shape[1]
+    idx = torch.arange(T, device=dur_pred_sum.device)[None, :]
+    interior = ((idx >= 1) & (idx < lengths[:, None] - 1)).float()
+    per_sample = ((dur_pred_sum.float() - durations).abs() * interior).sum(dim=1) / (
+        interior.sum(dim=1).clamp(min=1.0))
+    return per_sample.mean()
+
+
+def smooth_l1(x, y, beta: float = 1.0) -> torch.Tensor:
+    d = (x.float() - y.float()).abs()
+    return torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta).mean()

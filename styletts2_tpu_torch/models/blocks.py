@@ -20,7 +20,8 @@ class AdainResBlk1d(nn.Module):
     """AdaIN -> LeakyReLU -> [depthwise ConvTranspose 2x] -> conv3 -> AdaIN ->
     LeakyReLU -> conv3, plus a nearest-2x (+ 1x1) shortcut, scaled 1/sqrt(2).
     NCW in and out. In train mode `dropout` applies before each conv
-    (`blocks.py:40,44`); the decoders build it with 0."""
+    (`blocks.py:40,44`); the decoders build it with 0, the prosody
+    predictor with 0.2."""
 
     def __init__(self, dim_in: int, dim_out: int, style_dim: int, upsample: bool = False,
                  dropout: float = 0.0):

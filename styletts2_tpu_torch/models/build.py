@@ -1,5 +1,5 @@
-"""Assembly of the synthesis path's and the stage-1 trainer's modules, with
-seeded random weights.
+"""Assembly of the synthesis path's and the trainers' modules, with seeded
+random weights.
 
 `build_models(cfg, generator)` returns an `nn.ModuleDict` keyed like the
 reference checkpoint's `net` dict (`module_keys(cfg)`): text_encoder, bert,
@@ -23,7 +23,8 @@ from styletts2_tpu_torch.models import decoder_hifigan, decoder_istft
 from styletts2_tpu_torch.models.asr import ASRCNN, init_asr_
 from styletts2_tpu_torch.models.diffusion.denoiser import LearnedPositionalEmbedding, Transformer1d
 from styletts2_tpu_torch.models.discriminators import (MultiPeriodDiscriminator,
-                                                       MultiResSpecDiscriminator, init_discriminator_)
+                                                       MultiResSpecDiscriminator, WavLMDiscriminator,
+                                                       init_discriminator_)
 from styletts2_tpu_torch.models.jdc import JDCNet, init_jdc_
 from styletts2_tpu_torch.models.layers import (SNConv2d, WNConv1d, WNConvTranspose1d, lecun_normal_,
                                                uniform_)
@@ -37,6 +38,7 @@ BASE_MODULES = ("text_encoder", "bert", "bert_encoder", "predictor", "decoder", 
 STYLE_MODULES = ("style_encoder", "predictor_encoder")
 TRAIN_MODULES = ("text_encoder", "style_encoder", "decoder", "text_aligner", "pitch_extractor",
                  "mpd", "msd")
+STAGE2_MODULES = ("bert", "bert_encoder", "predictor", "predictor_encoder", "diffusion", "wd")
 FROZEN_MODULES = ("wavlm",)  # never stepped and never checkpointed
 
 
@@ -79,23 +81,29 @@ def _style_encoder(cfg: Config) -> StyleEncoder:
     return StyleEncoder(mp.dim_in, mp.style_dim, max_conv_dim=mp.hidden_dim)
 
 
-def build_models(cfg: Config, generator: Optional[torch.Generator] = None) -> nn.ModuleDict:
+def _diffusion(cfg: Config) -> Transformer1d:
     mp = cfg.model_params
     tr = mp.diffusion.transformer
+    pb = cfg.plbert_params
+    return Transformer1d(
+        channels=mp.style_dim * 2, context_embedding_features=pb.hidden_size,
+        num_layers=tr.num_layers, num_heads=tr.num_heads,
+        head_features=tr.head_features, multiplier=tr.multiplier,
+        embedding_max_length=pb.max_position_embeddings,
+        context_features=mp.style_dim * 2 if mp.multispeaker else 0,
+    )
+
+
+def build_models(cfg: Config, generator: Optional[torch.Generator] = None) -> nn.ModuleDict:
+    mp = cfg.model_params
     pb = cfg.plbert_params
     models = nn.ModuleDict({
         "text_encoder": _text_encoder(cfg),
         "bert": PLBERT(pb),
         "bert_encoder": BertEncoder(pb.hidden_size, mp.hidden_dim),
-        "predictor": ProsodyPredictor(mp.style_dim, mp.hidden_dim, mp.n_layer, mp.max_dur),
+        "predictor": ProsodyPredictor(mp.style_dim, mp.hidden_dim, mp.n_layer, mp.max_dur, mp.dropout),
         "decoder": _decoder(cfg),
-        "diffusion": Transformer1d(
-            channels=mp.style_dim * 2, context_embedding_features=pb.hidden_size,
-            num_layers=tr.num_layers, num_heads=tr.num_heads,
-            head_features=tr.head_features, multiplier=tr.multiplier,
-            embedding_max_length=pb.max_position_embeddings,
-            context_features=mp.style_dim * 2 if mp.multispeaker else 0,
-        ),
+        "diffusion": _diffusion(cfg),
     })
     if mp.multispeaker:
         for key in STYLE_MODULES:
@@ -104,14 +112,20 @@ def build_models(cfg: Config, generator: Optional[torch.Generator] = None) -> nn
     return models
 
 
-def build_training_models(cfg: Config, generator: Optional[torch.Generator] = None
-                          ) -> nn.ModuleDict:
-    """The stage-1 trainer's modules, keyed like the reference checkpoint:
+def build_training_models(cfg: Config, generator: Optional[torch.Generator] = None,
+                          stage: str = "first") -> nn.ModuleDict:
+    """The trainer's modules, keyed like the reference checkpoint:
     TRAIN_MODULES (text_encoder, style_encoder and decoder as synthesis
     builds them; the ASR aligner text_aligner, the JDC pitch_extractor and
     the mpd / msd discriminators, `styletts2_tpu/models/build.py:147-196`)
-    and the frozen `wavlm`, each with the JAX package's init distributions
-    drawn from `generator`."""
+    and the frozen `wavlm`; for stage `second` or `finetune` also
+    STAGE2_MODULES (bert, bert_encoder, predictor, predictor_encoder,
+    diffusion and the WavLM discriminator wd; both style encoders whether
+    or not the config is multispeaker). Each takes the JAX package's init
+    distributions, drawn from `generator` in that order, so the stage-1
+    modules get the same weights at every stage."""
+    if stage not in ("first", "second", "finetune"):
+        raise ValueError(f"unknown stage {stage!r}")
     mp = cfg.model_params
     models = nn.ModuleDict({"text_encoder": _text_encoder(cfg),
                             "style_encoder": _style_encoder(cfg), "decoder": _decoder(cfg)})
@@ -126,6 +140,18 @@ def build_training_models(cfg: Config, generator: Optional[torch.Generator] = No
     for key, (mod, init) in extra.items():
         init(mod, generator)
         models[key] = mod
+    if stage != "first":
+        pb, sl = cfg.plbert_params, mp.slm
+        second = nn.ModuleDict({
+            "bert": PLBERT(pb),
+            "bert_encoder": BertEncoder(pb.hidden_size, mp.hidden_dim),
+            "predictor": ProsodyPredictor(mp.style_dim, mp.hidden_dim, mp.n_layer, mp.max_dur, mp.dropout),
+            "predictor_encoder": _style_encoder(cfg),
+            "diffusion": _diffusion(cfg),
+            "wd": WavLMDiscriminator(sl.hidden, sl.nlayers, sl.initial_channel),
+        })
+        _init_weights(second, generator)
+        models.update(second)
     return models
 
 

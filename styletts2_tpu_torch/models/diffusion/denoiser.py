@@ -9,7 +9,8 @@ and projected back. Padded keys are masked out of the attention with
 finfo.min, and classifier-free guidance runs cond and uncond as one batched
 pass. The multispeaker net also maps the reference style `features` into
 the mapping vector and normalises the attention inputs with AdaLayerNorms
-conditioned on them. Attention is plain tensor ops. Module names follow the
+conditioned on them. In training an `embedding_mask` (`draw_embedding_mask`)
+swaps the PL-BERT embedding of the items it marks for the fixed one. Attention is plain tensor ops. Module names follow the
 reference checkpoint (`styletts2_tpu/convert.py:convert_diffusion`).
 """
 
@@ -26,6 +27,13 @@ from styletts2_tpu_torch.models.layers import AdaLayerNorm
 # flax.linen.LayerNorm's default epsilon, which the JAX single-speaker
 # denoiser uses; its AdaLayerNorm keeps 1e-5
 _LN_EPS = 1e-6
+
+
+def draw_embedding_mask(batch: int, proba: float, generator: Optional[torch.Generator] = None,
+                        device=None) -> torch.Tensor:
+    """(batch,) bool, each item True with probability `proba`, drawn from
+    `generator`: the items whose embedding the denoiser swaps."""
+    return torch.rand((batch,), generator=generator, device=device) < proba
 
 
 class _SwapLast(nn.Module):
@@ -151,15 +159,20 @@ class Transformer1d(nn.Module):
 
     def forward(self, x, time, embedding, embedding_scale: float = 1.0,
                 embedding_lengths: Optional[torch.Tensor] = None,
-                features: Optional[torch.Tensor] = None):
+                features: Optional[torch.Tensor] = None,
+                embedding_mask: Optional[torch.Tensor] = None):
         """x (B, 1, channels) noisy style; time (B,) c_noise; embedding
         (B, T, E) PL-BERT features; embedding_lengths (B,) masks padded
         positions; features (B, context_features) the reference style of the
-        multispeaker net -> (B, 1, channels)."""
+        multispeaker net; embedding_mask (B,) bool, True where the fixed
+        embedding replaces the item's -> (B, 1, channels)."""
         if (features is None) != (not hasattr(self, "to_features")):
             raise ValueError("`features` are needed by, and only by, the multispeaker denoiser")
         B, T = embedding.shape[:2]
         fixed = self.fixed_embedding.embedding.weight[None, :T].expand(B, T, -1)
+        if embedding_mask is not None:
+            embedding = torch.where(embedding_mask.to(embedding.device)[:, None, None], fixed,
+                                    embedding)
         valid = None
         if embedding_lengths is not None:
             valid = (torch.arange(T, device=embedding.device)[None, :]

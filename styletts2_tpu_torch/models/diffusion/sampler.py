@@ -1,5 +1,6 @@
-"""EDM preconditioning, Karras schedule and the ADPM2 sampler
-(`styletts2_tpu/models/diffusion/sampler.py:25-129`)."""
+"""EDM preconditioning, Karras schedule, the EDM training loss and the
+ADPM2 sampler (`styletts2_tpu/models/diffusion/sampler.py:25-129`). Both the
+loss and the sampler carry gradients: stage 2 differentiates through them."""
 
 from __future__ import annotations
 
@@ -39,6 +40,30 @@ def make_denoise_fn(net_apply: Callable, sigma_data: float) -> Callable:
         return c_skip * x_noisy + c_out * net_apply(c_in * x_noisy, c_noise)
 
     return denoise
+
+
+def kdiffusion_loss(net_apply: Callable, x0: torch.Tensor, sigma_data: float,
+                    dist_mean: float = -3.0, dist_std: float = 1.0,
+                    generator: Optional[torch.Generator] = None,
+                    sigmas: Optional[torch.Tensor] = None,
+                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The EDM training loss of net_apply(x, c_noise) at x0 (B, ...): sigma
+    log-normal (exp(dist_mean + dist_std * N(0, 1))), x0 noised by
+    sigma * N(0, 1), and the MSE of the preconditioned denoiser's estimate,
+    weighted by (sigma^2 + sigma_data^2) / (sigma * sigma_data)^2, averaged.
+    `sigmas` (B,) and `noise` (x0's shape) are drawn from `generator`
+    unless given."""
+    B = x0.shape[0]
+    if sigmas is None:
+        sigmas = torch.exp(dist_mean + dist_std * torch.randn(
+            (B,), generator=generator, device=x0.device))
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+    x_noisy = x0 + sigmas.reshape((B,) + (1,) * (x0.dim() - 1)) * noise
+    x_denoised = make_denoise_fn(net_apply, sigma_data)(x_noisy, sigmas)
+    losses = ((x_denoised - x0) ** 2).mean(dim=tuple(range(1, x0.dim())))
+    weight = (sigmas ** 2 + sigma_data ** 2) * (sigmas * sigma_data) ** -2
+    return (losses * weight).mean()
 
 
 def sample_adpm2(denoise_fn: Callable, noise: torch.Tensor, num_steps: int,

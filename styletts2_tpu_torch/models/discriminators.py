@@ -1,13 +1,15 @@
-"""GAN discriminators of stage 1: multi-period and multi-resolution
-spectrogram (`styletts2_tpu/models/discriminators.py:25-147`), NCHW.
+"""GAN discriminators: multi-period and multi-resolution spectrogram
+(`styletts2_tpu/models/discriminators.py:25-147`, NCHW), and stage 2's WavLM
+discriminator (`:150-166`).
 
 `MultiPeriodDiscriminator` folds the waveform by each period (2, 3, 5, 7,
 11) into (B, 1, T/p, p) and runs weight-normed (k, 1) convs;
 `MultiResSpecDiscriminator` runs weight-normed (3, 9) convs over |STFT| at
 three resolutions, laid out (B, 1, frames, freq). Each returns (real
 logits, generated logits, real feature maps, generated feature maps), the
-tuple the losses take. Module names are the reference checkpoint's
-(`styletts2_tpu/convert.py:convert_mpd`, `convert_msd`).
+tuple the losses take. `WavLMDiscriminator` scores stacked WavLM hidden
+states frame by frame. Module names are the reference checkpoint's
+(`styletts2_tpu/convert.py:convert_mpd`, `convert_msd`, `convert_wd`).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from styletts2_tpu_torch.models.layers import uniform_
+from styletts2_tpu_torch.models.layers import WNConv1d, uniform_
 from styletts2_tpu_torch.ops.stft import stft
 
 
@@ -121,6 +123,28 @@ class MultiResSpecDiscriminator(nn.Module):
 
     def forward(self, y, y_hat):
         return _pairs(self.discriminators, y, y_hat)
+
+
+class WavLMDiscriminator(nn.Module):
+    """The SLM discriminator: stacked WavLM states (B, T, slm_hidden *
+    slm_layers) -> logits (B, T). A weight-normed 1x1 `pre` conv to
+    initial_channel, three weight-normed k = 5 convs (x2, x4, x4 channels)
+    each followed by LeakyReLU(0.1), and a k = 3 `conv_post` to one channel."""
+
+    def __init__(self, slm_hidden: int = 768, slm_layers: int = 13, initial_channel: int = 64):
+        super().__init__()
+        c = initial_channel
+        self.pre = WNConv1d(slm_hidden * slm_layers, c, 1)
+        self.convs = nn.ModuleList([WNConv1d(c, c * 2, 5, padding=2),
+                                    WNConv1d(c * 2, c * 4, 5, padding=2),
+                                    WNConv1d(c * 4, c * 4, 5, padding=2)])
+        self.conv_post = WNConv1d(c * 4, 1, 3, padding=1)
+
+    def forward(self, x):
+        x = self.pre(x.transpose(1, 2))
+        for conv in self.convs:
+            x = F.leaky_relu(conv(x), 0.1)
+        return self.conv_post(x).flatten(1)
 
 
 @torch.no_grad()

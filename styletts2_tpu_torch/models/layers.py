@@ -93,11 +93,15 @@ class SNConv2d(nn.Module):
 
     torch `spectral_norm`'s names: the parameter `weight_orig` (out, in/groups,
     kh, kw) and the buffers `weight_u` (out,) and `weight_v` (in/groups*kh*kw,)
-    in that flattening order. The weight is divided by sigma = u . (W_mat v).
-    In train mode each call first runs one power iteration in f32 (norms
-    + 1e-12) and stores the new (u, v) in place, without gradient; sigma
-    then keeps its gradient through W. In eval mode the stored vectors are
-    used as they are."""
+    in that flattening order. The weight is divided by sigma = u . (W_mat v);
+    sigma keeps its gradient through W, never through (u, v).
+
+    `update_stats` says which (u, v) a call uses, in either mode:
+    - False: the stored vectors.
+    - True: one power iteration in f32 (norms + 1e-12) whose result is used
+      now but stored only by `commit_spectral_updates`, so that the step's
+      other passes see the vectors the step began with (the JAX package's
+      `update_stats=True` passes, folded in after the optimizer step)."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, groups=1, bias=True):
         super().__init__()
@@ -107,22 +111,33 @@ class SNConv2d(nn.Module):
         self.register_buffer("weight_u", torch.zeros(out_ch))
         self.register_buffer("weight_v", torch.zeros(in_ch // groups * kh * kw))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
+        self.pending = None  # (u, v) of an update_stats=True call, until committed
 
-    def forward(self, x):
+    def forward(self, x, update_stats: bool = False):
         w = self.weight_orig
         w_mat = w.reshape(w.shape[0], -1).float()
         u, v = self.weight_u, self.weight_v
-        if self.training:
+        if update_stats:
             with torch.no_grad():
                 v = w_mat.T @ u
                 v = v / (torch.linalg.vector_norm(v) + 1e-12)
                 u = w_mat @ v
                 u = u / (torch.linalg.vector_norm(u) + 1e-12)
-                self.weight_u.copy_(u)
-                self.weight_v.copy_(v)
+                self.pending = (u, v)
         sigma = u @ (w_mat @ v)
         return F.conv2d(x, w / sigma.to(w.dtype), self.bias, self.stride, self.padding, 1,
                         self.groups)
+
+
+@torch.no_grad()
+def commit_spectral_updates(root: nn.Module) -> None:
+    """Store the (u, v) that `update_stats=True` calls left pending in
+    every SNConv2d under `root`."""
+    for mod in root.modules():
+        if isinstance(mod, SNConv2d) and mod.pending is not None:
+            mod.weight_u.copy_(mod.pending[0])
+            mod.weight_v.copy_(mod.pending[1])
+            mod.pending = None
 
 
 def avg_pool_2d_2x(x: torch.Tensor) -> torch.Tensor:

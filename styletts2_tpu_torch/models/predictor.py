@@ -1,8 +1,15 @@
-"""Prosody predictor: durations, F0 and energy (`styletts2_tpu/models/predictor.py`)."""
+"""Prosody predictor: durations, F0 and energy (`styletts2_tpu/models/predictor.py`).
+
+In train mode three dropouts apply, as in the JAX package: `dropout` (0.2)
+after each LSTM of the duration encoder, 0.5 before the duration
+projection, and `dropout` before each conv of the F0 / N blocks. They draw
+from torch's global generator; eval mode is deterministic.
+"""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from styletts2_tpu_torch.models.blocks import AdainResBlk1d
@@ -13,9 +20,10 @@ class DurationEncoder(nn.Module):
     """nlayers x [BiLSTM -> AdaLayerNorm(style) -> re-concat style], masked.
     `lstms` alternates the two kinds, as the reference checkpoint does."""
 
-    def __init__(self, sty_dim: int = 128, d_model: int = 512, nlayers: int = 3):
+    def __init__(self, sty_dim: int = 128, d_model: int = 512, nlayers: int = 3,
+                 dropout: float = 0.2):
         super().__init__()
-        self.sty_dim = sty_dim
+        self.sty_dim, self.dropout = sty_dim, dropout
         layers = []
         for _ in range(nlayers):
             layers += [BiLSTM(d_model + sty_dim, d_model // 2), AdaLayerNorm(sty_dim, d_model)]
@@ -29,7 +37,7 @@ class DurationEncoder(nn.Module):
         s_seq = style[:, None, :].expand(B, T, self.sty_dim)
         x = torch.cat([x, s_seq], dim=-1).masked_fill(~valid, 0.0)
         for lstm, ada in zip(self.lstms[0::2], self.lstms[1::2]):
-            h = ada(lstm(x, lengths), style)
+            h = ada(F.dropout(lstm(x, lengths), self.dropout, self.training), style)
             x = torch.cat([h, s_seq], dim=-1).masked_fill(~valid, 0.0)
         return x
 
@@ -45,23 +53,23 @@ class LinearNorm(nn.Module):
 
 class ProsodyPredictor(nn.Module):
     def __init__(self, style_dim: int = 128, d_hid: int = 512, nlayers: int = 3,
-                 max_dur: int = 50):
+                 max_dur: int = 50, dropout: float = 0.2):
         super().__init__()
-        self.text_encoder = DurationEncoder(style_dim, d_hid, nlayers)
+        self.text_encoder = DurationEncoder(style_dim, d_hid, nlayers, dropout)
         self.lstm = BiLSTM(d_hid + style_dim, d_hid // 2)
         self.duration_proj = LinearNorm(d_hid, max_dur)
         self.shared = BiLSTM(d_hid + style_dim, d_hid // 2)
-        self.F0 = self._branch(d_hid, style_dim)
-        self.N = self._branch(d_hid, style_dim)
+        self.F0 = self._branch(d_hid, style_dim, dropout)
+        self.N = self._branch(d_hid, style_dim, dropout)
         self.F0_proj = nn.Conv1d(d_hid // 2, 1, 1)
         self.N_proj = nn.Conv1d(d_hid // 2, 1, 1)
 
     @staticmethod
-    def _branch(d_hid, style_dim):
+    def _branch(d_hid, style_dim, dropout):
         return nn.ModuleList([
-            AdainResBlk1d(d_hid, d_hid, style_dim),
-            AdainResBlk1d(d_hid, d_hid // 2, style_dim, upsample=True),
-            AdainResBlk1d(d_hid // 2, d_hid // 2, style_dim),
+            AdainResBlk1d(d_hid, d_hid, style_dim, dropout=dropout),
+            AdainResBlk1d(d_hid, d_hid // 2, style_dim, upsample=True, dropout=dropout),
+            AdainResBlk1d(d_hid // 2, d_hid // 2, style_dim, dropout=dropout),
         ])
 
     def encode_texts(self, texts, style, lengths):
@@ -70,7 +78,13 @@ class ProsodyPredictor(nn.Module):
 
     def duration(self, d, lengths):
         """Duration logits (B, T, max_dur) from encoded texts d (B, T, C)."""
-        return self.duration_proj(self.lstm(d, lengths))
+        return self.duration_proj(F.dropout(self.lstm(d, lengths), 0.5, self.training))
+
+    def forward(self, texts, style, lengths, alignment):
+        """texts (B, T, d_hid), alignment (B, T, F) -> (duration logits
+        (B, T, max_dur), the aligned features (B, d_hid + style_dim, F))."""
+        d = self.encode_texts(texts, style, lengths)
+        return self.duration(d, lengths), d.transpose(1, 2) @ alignment
 
     def F0Ntrain(self, x, s):
         """x (B, d_hid + style_dim, F) aligned features -> F0, N, each (B, 2F)."""

@@ -25,8 +25,8 @@ class LearnedDownSample(nn.Module):
         super().__init__()
         self.conv = SNConv2d(channels, channels, 3, stride=2, padding=1, groups=channels)
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, update_stats: bool = False):
+        return self.conv(x, update_stats)
 
 
 class ResBlk2d(nn.Module):
@@ -41,10 +41,10 @@ class ResBlk2d(nn.Module):
         if dim_in != dim_out:
             self.conv1x1 = SNConv2d(dim_in, dim_out, 1, bias=False)
 
-    def forward(self, x):
-        h = self.conv1(leaky_relu(x))
-        h = self.conv2(leaky_relu(self.downsample_res(h)))
-        s = self.conv1x1(x) if hasattr(self, "conv1x1") else x
+    def forward(self, x, update_stats: bool = False):
+        h = self.conv1(leaky_relu(x), update_stats)
+        h = self.conv2(leaky_relu(self.downsample_res(h, update_stats)), update_stats)
+        s = self.conv1x1(x, update_stats) if hasattr(self, "conv1x1") else x
         return (avg_pool_2d_2x(s) + h) / math.sqrt(2.0)
 
 
@@ -65,7 +65,8 @@ class StyleEncoder(nn.Module):
         self.shared = nn.ModuleList(layers)
         self.unshared = nn.Linear(d, style_dim)
 
-    def forward(self, mel: torch.Tensor, lengths: Optional[torch.Tensor] = None):
+    def forward(self, mel: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                update_stats: bool = False):
         """With `lengths` (B,) of valid mel frames, frames past them are
         zeroed and the pool averages only the valid width, so a padded batch
         gives each item its own style."""
@@ -80,7 +81,7 @@ class StyleEncoder(nn.Module):
                                   >= lengths[:, None, None], 0.0)
         x = mel[:, None]
         for layer in self.shared:
-            x = layer(x)
+            x = layer(x) if isinstance(layer, nn.LeakyReLU) else layer(x, update_stats)
         if lengths is None:
             x = x.mean(dim=(2, 3))
         else:

@@ -1,26 +1,40 @@
-"""The stage-1 training entry point (`styletts2_tpu/train/run.py`, stage `first`).
+"""The training entry points (`styletts2_tpu/train/run.py`).
 
     python -m styletts2_tpu_torch.train.run first --config_path configs/config.yml \\
         [--max_steps N] [--device cuda]
+    python -m styletts2_tpu_torch.train.run second --config_path configs/config.yml ...
+    python -m styletts2_tpu_torch.train.run finetune --config_path configs/config_ft.yml ...
 
-`run_stage("first", config)` builds the stage-1 modules with seeded random
+`run_stage(stage, config)` builds the stage's modules with seeded random
 weights (the JAX package's init distributions), loads the reference ASR
 and JDC checkpoints where `ASR_path` / `F0_path` exist (the port's module
-names are the reference's), resumes from the newest `epoch_1st_NNNNN.pth`
-in `log_dir` without being asked, then runs the epoch loop: train steps
-(a metrics line every `log_interval`), the validation mel loss, an
-asynchronous checkpoint every `save_freq` epochs and `first_stage.pth` at
-the end. With STYLETTS2_DEBUG_NAN=1 it stops at the first non-finite
-metric and names the non-finite parameters. WavLM stays at random init:
-its pretrained weights come from the Hugging Face hub, which the port does
-not read, as the JAX `run.py` falls back when they are missing; PL-BERT is
-not part of stage 1.
+names are the reference's), resumes from the stage's newest epoch file in
+`log_dir` (`epoch_1st_`, `epoch_2nd_`, `epoch_ft_NNNNN.pth`) without being
+asked, then runs the epoch loop: train steps (a metrics line every
+`log_interval`), the validation losses, an asynchronous checkpoint every
+`save_freq` epochs and, at the end, `first_stage.pth` or `{stage}_final.pth`.
+Without an epoch file to resume from, `finetune` takes the weights of
+`pretrained_model` (only those when `load_only_params`), and so does
+`second` when `second_stage_load_pretrained` is set and that file exists;
+otherwise `second` takes the first stage's handoff from
+`log_dir/first_stage_path` (the stage-2 modules left at their init,
+`predictor_encoder` a copy of `style_encoder`). After
+stage 2 or finetuning the estimated sigma_data is written into the config
+copy in `log_dir`: a config file given by path is copied there, a Config
+object written there as JSON (a YAML subset) to `config.yml`. With
+STYLETTS2_DEBUG_NAN=1 the loop stops at the first non-finite metric and
+names the non-finite parameters. WavLM and PL-BERT stay at random init: the
+port reads neither the Hugging Face hub's WavLM nor a PL-BERT checkpoint,
+as the JAX `run.py` falls back when they are missing.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import os
+import re
 import shutil
 import time
 from typing import Optional, Union
@@ -32,12 +46,18 @@ from styletts2_tpu_torch.config import Config, config_from_path
 from styletts2_tpu_torch.data.meldataset import build_dataloader
 from styletts2_tpu_torch.models.build import build_training_models
 from styletts2_tpu_torch.observability import MetricsWriter, get_logger
+from styletts2_tpu_torch.train.finetune import FinetuneTrainer
 from styletts2_tpu_torch.train.stage1 import Stage1Trainer
+from styletts2_tpu_torch.train.stage2 import Stage2Trainer
 from styletts2_tpu_torch.train.state import (AsyncSaver, TrainState, build_optimizers,
                                              find_latest_checkpoint, load_checkpoint,
                                              save_checkpoint)
 
-CKPT_PREFIX = "epoch_1st_"
+CKPT_PREFIX = {"first": "epoch_1st_", "second": "epoch_2nd_", "finetune": "epoch_ft_"}
+TRAINERS = {"first": Stage1Trainer, "second": Stage2Trainer, "finetune": FinetuneTrainer}
+# what stage 2 does not take from the first stage
+FIRST_STAGE_IGNORED = ("bert", "bert_encoder", "predictor", "predictor_encoder", "msd", "mpd", "wd",
+                       "diffusion")
 
 
 def _load_pretrained(models, cfg: Config, logger) -> None:
@@ -57,13 +77,17 @@ def _load_pretrained(models, cfg: Config, logger) -> None:
             logger.warning(f"could not load {key} from {path}: {type(e).__name__}: {e}")
 
 
-def setup(cfg: Config, device, logger):
+def setup(cfg: Config, device, logger, stage: str = "first"):
     torch.manual_seed(0)  # dropout's draws
-    models = build_training_models(cfg, torch.Generator().manual_seed(0))
+    models = build_training_models(cfg, torch.Generator().manual_seed(0), stage)
     _load_pretrained(models, cfg, logger)
     logger.info("WavLM at random init: the port reads no Hugging Face weights")
+    if stage != "first":
+        logger.info("PL-BERT at random init: the port reads no PL-BERT checkpoint")
     models.to(device)
-    state = TrainState(models, build_optimizers(cfg, models))
+    state = TrainState(models, build_optimizers(cfg, models, stage2=stage != "first"))
+    if stage != "first":
+        state.sigma_data = cfg.model_params.diffusion.dist.sigma_data
     dp = cfg.data_params
     train_loader = build_dataloader(dp.train_data, dp.root_path, ood_path=dp.OOD_data,
                                     min_length=dp.min_length, batch_size=cfg.batch_size)
@@ -75,31 +99,37 @@ def setup(cfg: Config, device, logger):
 
 def run_stage(stage: str, config: Union[Config, str], max_steps: Optional[int] = None,
               device="cuda") -> TrainState:
-    """Train stage `first` with `config` (a Config, or a config file's path,
-    which is copied into log_dir); at most `max_steps` steps when given."""
-    if stage != "first":
-        raise ValueError(f"the port trains stage 'first' only, not {stage!r}")
+    """Train `stage` (first, second or finetune) with `config` (a Config, or
+    a config file's path); at most `max_steps` steps when given."""
+    if stage not in CKPT_PREFIX:
+        raise ValueError(f"unknown stage {stage!r}: one of {sorted(CKPT_PREFIX)}")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"run_stage: device {device}: no CUDA device is available")
     cfg = config_from_path(config) if isinstance(config, str) else config
     log_dir = cfg.log_dir
     logger = get_logger(log_dir)
     if isinstance(config, str):
-        shutil.copy(config, os.path.join(log_dir, os.path.basename(config)))
-    device = torch.device(device)
-    state, train_loader, val_loader = setup(cfg, device, logger)
-    latest = find_latest_checkpoint(log_dir, CKPT_PREFIX)
-    if latest is not None:
-        load_checkpoint(latest, state)
-        logger.info(f"auto-resuming from {latest} (epoch {state.epoch})")
-    trainer = Stage1Trainer(cfg, state, device)
+        config_copy = os.path.join(log_dir, os.path.basename(config))
+        shutil.copy(config, config_copy)
+    else:
+        config_copy = os.path.join(log_dir, "config.yml")
+        with open(config_copy, "w") as f:
+            json.dump(dataclasses.asdict(cfg), f, indent=2)
+    state, train_loader, val_loader = setup(cfg, device, logger, stage)
+    prefix = CKPT_PREFIX[stage]
+    start(stage, cfg, state, logger)
+    trainer = TRAINERS[stage](cfg, state, device)
+    epochs = cfg.epochs_1st if stage == "first" else cfg.epochs_2nd
     writer, saver = MetricsWriter(log_dir), AsyncSaver()
     debug_nan = os.environ.get("STYLETTS2_DEBUG_NAN") == "1"
     rng = np.random.default_rng(1)
     iters = 0
     try:
-        for epoch in range(state.epoch, cfg.epochs_1st):
+        for epoch in range(state.epoch, epochs):
             for batch in train_loader:
                 t0 = time.perf_counter()
-                metrics = trainer.train_step(batch, epoch, rng)  # ends in a host sync
+                metrics = trainer.train_step(batch, epoch, iters, rng)  # ends in a host sync
                 dt = time.perf_counter() - t0
                 if metrics is None:
                     continue
@@ -119,23 +149,80 @@ def run_stage(stage: str, config: Union[Config, str], max_steps: Optional[int] =
                     break
             vals = [v for v in (trainer.validate(b, rng) for b in val_loader) if v is not None]
             if vals:
-                writer.scalars({"eval/mel": float(np.mean(vals))}, state.step)
-                logger.info(f"epoch {epoch}: validation mel {np.mean(vals):.4f}")
+                agg = {k: float(np.mean([v[k] for v in vals])) for k in vals[0]}
+                writer.scalars({f"eval/{k}": v for k, v in agg.items()}, state.step)
+                logger.info(f"epoch {epoch}: validation "
+                            + " ".join(f"{k} {v:.4f}" for k, v in agg.items()))
             state.epoch = epoch + 1
             if state.epoch % cfg.save_freq == 0:
-                saver.save(os.path.join(log_dir, f"{CKPT_PREFIX}{state.epoch:05d}.pth"), state)
+                saver.save(os.path.join(log_dir, f"{prefix}{state.epoch:05d}.pth"), state)
             if max_steps and iters >= max_steps:
                 break
-        save_checkpoint(os.path.join(log_dir, cfg.first_stage_path), state)
+        if stage == "first":
+            save_checkpoint(os.path.join(log_dir, cfg.first_stage_path), state)
+        else:
+            line = write_sigma_data(config_copy, state.sigma_data)
+            logger.info(f"sigma_data {state.sigma_data!r} written into {config_copy}: {line}"
+                        if line else f"{config_copy} has no sigma_data line: left as it is")
+            save_checkpoint(os.path.join(log_dir, f"{stage}_final.pth"), state)
     finally:
         saver.close()
         writer.close()
     return state
 
 
+def start(stage: str, cfg: Config, state: TrainState, logger) -> None:
+    """Load the state `stage` starts from: its newest epoch file in
+    `log_dir`; else `pretrained_model` where it exists, for finetuning
+    always and for stage 2 when `second_stage_load_pretrained` says it is a
+    stage-2 checkpoint (the reference's train_second.py); else, for stage
+    2, the first stage's handoff. Nothing found: the seeded init."""
+    latest = find_latest_checkpoint(cfg.log_dir, CKPT_PREFIX[stage])
+    first_stage = os.path.join(cfg.log_dir, cfg.first_stage_path)
+    pretrained = (stage == "finetune" or (stage == "second" and cfg.second_stage_load_pretrained)
+                  ) and bool(cfg.pretrained_model) and os.path.exists(cfg.pretrained_model)
+    if latest is not None:
+        load_checkpoint(latest, state)
+        logger.info(f"auto-resuming from {latest} (epoch {state.epoch})")
+    elif pretrained:
+        load_checkpoint(cfg.pretrained_model, state, load_only_params=cfg.load_only_params)
+        logger.info(f"loaded {cfg.pretrained_model}"
+                    + (" (weights only)" if cfg.load_only_params else f" (epoch {state.epoch})"))
+    elif stage == "second" and os.path.exists(first_stage):
+        _load_first_stage(state, first_stage, logger)
+
+
+def _load_first_stage(state: TrainState, path: str, logger) -> None:
+    """Stage 2's start: the first stage's weights but for the stage-2
+    modules and the discriminators, then predictor_encoder as a copy of
+    style_encoder (its spectral-norm vectors included)."""
+    load_checkpoint(path, state, load_only_params=True, ignore_modules=FIRST_STAGE_IGNORED)
+    state.models["predictor_encoder"].load_state_dict(state.models["style_encoder"].state_dict())
+    logger.info(f"loaded first stage from {path}")
+
+
+_SIGMA_LINE = re.compile(r'^(\s*"?sigma_data"?\s*:\s*)([^,\s]+)', re.M)
+
+
+def write_sigma_data(path: str, sigma: float) -> Optional[str]:
+    """Set the value on the first `sigma_data:` line of the YAML (or JSON)
+    config at `path`, without a YAML library; returns the line as written,
+    or None when the file has no such line."""
+    with open(path) as f:
+        text = f.read()
+    m = _SIGMA_LINE.search(text)
+    if m is None:
+        return None
+    text = text[: m.start(2)] + repr(float(sigma)) + text[m.end(2):]
+    with open(path, "w") as f:
+        f.write(text)
+    end = text.find("\n", m.start())
+    return text[m.start(): end if end >= 0 else len(text)].strip()
+
+
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="styletts2_tpu_torch stage-1 training")
-    ap.add_argument("stage", choices=["first"])
+    ap = argparse.ArgumentParser(description="styletts2_tpu_torch training")
+    ap.add_argument("stage", choices=list(CKPT_PREFIX))
     ap.add_argument("--config_path", required=True)
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")

@@ -12,7 +12,8 @@ lambda_mono * mono + lambda_s2s * s2s + lambda_slm * WavLM + lambda_gen *
 adversarial, the adversarial term taken against the UPDATED discriminators;
 the aligner and the pitch extractor are stepped too (the latter gets no
 gradient and learns only weight decay, as in the reference). The style
-encoder's spectral-norm vectors advance one power iteration per step.
+encoder's spectral-norm vectors advance one power iteration per step, stored
+after the optimizer step.
 
 The host numpy `rng` draws the soft / mono choice, the clip starts and the
 seed of the step's `torch.Generator`, in the JAX trainer's order; the
@@ -35,6 +36,7 @@ from torch.profiler import record_function
 from styletts2_tpu_torch import losses as L
 from styletts2_tpu_torch.config import Config
 from styletts2_tpu_torch.data.meldataset import Batch
+from styletts2_tpu_torch.models.layers import commit_spectral_updates
 from styletts2_tpu_torch.models.wavlm import resample_24k_to_16k
 from styletts2_tpu_torch.ops.align import maximum_path
 from styletts2_tpu_torch.ops.stft import log_norm, preprocess_mel
@@ -109,7 +111,7 @@ class Stage1Trainer:
             f0_real = m["pitch_extractor"](gt)[0]
         style_in = (clip_slice(mels, [2 * s for s in st_starts], 2 * clip_len)
                     if self.cfg.model_params.multispeaker else gt)
-        s = m["style_encoder"](style_in)
+        s = m["style_encoder"](style_in, update_stats=m["style_encoder"].training)
         y_rec = m["decoder"](en, f0_real, real_norm, s, generator)
         return y_rec, wav_clip, {"s2s_pred": s2s_pred, "s2s_attn": s2s_attn, "mono": mono}
 
@@ -136,8 +138,10 @@ class Stage1Trainer:
             mod.train(train and k in GEN_KEYS + ("text_aligner",))
             mod.requires_grad_(k in trainable)
 
-    def train_step(self, batch: Batch, epoch: int,
+    def train_step(self, batch: Batch, epoch: int, iters: int,
                    rng: np.random.Generator) -> Optional[Dict[str, float]]:
+        """One step (`iters`, the run's step count, is unused: stage 1 has no
+        every-n-steps update)."""
         cfg, m, opts = self.cfg, self.models, self.state.opts
         tma = epoch >= cfg.loss_params.TMA_epoch
         use_mono = bool(rng.integers(0, 2))
@@ -177,12 +181,13 @@ class Stage1Trainer:
             g_loss.backward()
         with record_function("optimizer"):
             step_modules(m, opts, g_keys)
+            commit_spectral_updates(m["style_encoder"])
         metrics["g_loss"] = g_loss
         self.state.step += 1
         return {k: float(v.detach()) for k, v in metrics.items()}
 
     @torch.no_grad()
-    def validate(self, batch: Batch, rng: np.random.Generator) -> Optional[float]:
+    def validate(self, batch: Batch, rng: np.random.Generator) -> Optional[Dict[str, float]]:
         """The validation mel loss: eval mode, the mono path, the style of the
         same clip."""
         clip_len = clip_length(self.cfg, batch.mel_lengths)
@@ -194,4 +199,4 @@ class Stage1Trainer:
         self._modes(False, ())
         y_rec, wav_clip, _ = self.forward_recon(*self._tensors(batch), starts, starts, clip_len,
                                                 True, gen)
-        return float(L.multires_stft_loss(y_rec, wav_clip))
+        return {"mel": float(L.multires_stft_loss(y_rec, wav_clip))}

@@ -2,16 +2,20 @@
 (`styletts2_tpu/train/state.py`).
 
 One `torch.optim.AdamW` per module (betas (0, 0.99), eps 1e-9, weight decay
-1e-4, the config's lr), as the reference's per-key optimizers. A step
-updates only the modules it names (`step_modules`); a parameter of a
-stepped module that got no gradient is stepped with a zero one, because
-optax applies the weight decay to every parameter of the module it updates
-(after TMA the pitch extractor learns nothing but that decay) and
-`torch.optim` would skip it.
+1e-4, the config's lr), as the reference's per-key optimizers; stage 2
+gives `bert` bert_lr, betas (0.9, 0.99) and weight decay 0.01, and the
+decoder and the style encoder ft_lr. A step updates only the modules it
+names (`step_modules`); a parameter of a stepped module that got no
+gradient is stepped with a zero one, because optax applies the weight
+decay to every parameter of the module it updates (after TMA the pitch
+extractor learns nothing but that decay) and `torch.optim` would skip it.
+An LSTM's bias_hh is stepped with a zero gradient too: the JAX LSTM has one
+bias, b_ih + b_hh, whose gradient bias_ih alone takes.
 
 Checkpoints use the reference layout `{"net": {module: state_dict},
-"optimizer": {module: state_dict}, "iters", "epoch"}`, written atomically
-(a temporary file, then a rename). The frozen WavLM is never written.
+"optimizer": {module: state_dict}, "iters", "epoch"}` plus stage 2's
+estimated `sigma_data`, written atomically (a temporary file, then a
+rename). The frozen WavLM is never written.
 `AsyncSaver` snapshots the state to host memory at once and writes it on a
 background thread; `find_latest_checkpoint` finds the newest epoch file
 for auto-resume.
@@ -32,18 +36,37 @@ from styletts2_tpu_torch.config import Config
 from styletts2_tpu_torch.models.build import FROZEN_MODULES
 
 
-def build_optimizers(cfg: Config, models: nn.ModuleDict) -> Dict[str, torch.optim.AdamW]:
-    lr = cfg.optimizer_params.lr
-    return {k: torch.optim.AdamW(m.parameters(), lr=lr, betas=(0.0, 0.99), eps=1e-9,
+def build_optimizers(cfg: Config, models: nn.ModuleDict,
+                     stage2: bool = False) -> Dict[str, torch.optim.AdamW]:
+    op = cfg.optimizer_params
+
+    def adamw(k, m):
+        if stage2 and k == "bert":
+            return torch.optim.AdamW(m.parameters(), lr=op.bert_lr, betas=(0.9, 0.99), eps=1e-9,
+                                     weight_decay=0.01)
+        lr = op.ft_lr if stage2 and k in ("decoder", "style_encoder") else op.lr
+        return torch.optim.AdamW(m.parameters(), lr=lr, betas=(0.0, 0.99), eps=1e-9,
                                  weight_decay=1e-4)
-            for k, m in models.items() if k not in FROZEN_MODULES}
+
+    return {k: adamw(k, m) for k, m in models.items() if k not in FROZEN_MODULES}
+
+
+def drop_bias_hh_grads(module: nn.Module) -> None:
+    """Zero the gradient of every LSTM bias_hh under `module` (see above)."""
+    for mod in module.modules():
+        if isinstance(mod, nn.LSTM):
+            for name, p in mod.named_parameters():
+                if name.startswith("bias_hh") and p.grad is not None:
+                    p.grad.zero_()
 
 
 def step_modules(models: nn.ModuleDict, opts: Dict[str, torch.optim.Optimizer],
                  keys: Iterable[str]) -> None:
     """Step the optimizers of `keys`, every parameter of those modules
-    included (a zero gradient where none arrived), then clear their grads."""
+    included (a zero gradient where none arrived, and at an LSTM's
+    bias_hh), then clear their grads."""
     for k in keys:
+        drop_bias_hh_grads(models[k])
         for p in models[k].parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -57,6 +80,7 @@ class TrainState:
     opts: Dict[str, torch.optim.Optimizer]
     step: int = 0
     epoch: int = 0
+    sigma_data: Optional[float] = None  # stage 2's estimate; None in stage 1
 
 
 def _to_host(obj):
@@ -71,12 +95,15 @@ def _to_host(obj):
 
 def snapshot(state: TrainState) -> dict:
     """The checkpoint payload, copied to host memory."""
-    return _to_host({
+    payload = {
         "net": {k: m.state_dict() for k, m in state.models.items() if k not in FROZEN_MODULES},
         "optimizer": {k: o.state_dict() for k, o in state.opts.items()},
         "iters": state.step,
         "epoch": state.epoch,
-    })
+    }
+    if state.sigma_data is not None:
+        payload["sigma_data"] = state.sigma_data
+    return _to_host(payload)
 
 
 def write_payload(path: str, payload: dict) -> None:
@@ -128,14 +155,24 @@ def find_latest_checkpoint(log_dir: str, prefix: str) -> Optional[str]:
     return os.path.join(log_dir, max(found)[1]) if found else None
 
 
-def load_checkpoint(path: str, state: TrainState) -> TrainState:
-    """Restore the modules, optimizers, step and epoch of a checkpoint; a
-    module the file lacks (the frozen WavLM) keeps its live weights."""
+def load_checkpoint(path: str, state: TrainState, load_only_params: bool = False,
+                    ignore_modules: Iterable[str] = ()) -> TrainState:
+    """Restore the modules, optimizers, step, epoch and sigma_data of a
+    checkpoint; a module the file lacks (the frozen WavLM) or that
+    `ignore_modules` names keeps its live weights. `load_only_params`
+    restores the modules' weights (spectral-norm vectors included) and
+    nothing else, as the reference's `load_checkpoint`."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     for k, sd in payload["net"].items():
-        state.models[k].load_state_dict(sd)
+        if k in state.models and k not in ignore_modules:
+            state.models[k].load_state_dict(sd)
+    if load_only_params:
+        return state
     for k, sd in payload.get("optimizer", {}).items():
-        state.opts[k].load_state_dict(sd)
+        if k in state.opts and k not in ignore_modules:
+            state.opts[k].load_state_dict(sd)
     state.step = int(payload.get("iters", 0))
     state.epoch = int(payload.get("epoch", 0))
+    if "sigma_data" in payload:
+        state.sigma_data = float(payload["sigma_data"])
     return state

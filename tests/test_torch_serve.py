@@ -205,7 +205,7 @@ def test_load_synthesizer_checkpoint_and_device(tmp_path):
     cfg_path = tmp_path / "tiny.yml"
     cfg = _tiny_libritts()
     cfg_path.write_text(
-        "log_dir: Models/LibriTTS\nepochs_1st: 50\nmax_len: 300\n"
+        "log_dir: Models/LibriTTS\nepochs_1st: 50\nepochs_2nd: 30\nmax_len: 300\n"
         "loss_params:\n  TMA_epoch: 5\n  diff_epoch: 10\n  joint_epoch: 30\n"
         "model_params:\n  multispeaker: true\n  dim_in: 16\n  hidden_dim: 64\n  style_dim: 32\n"
         "  decoder:\n    type: hifigan\n    upsample_rates: [10, 5, 3, 2]\n"

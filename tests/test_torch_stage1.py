@@ -207,7 +207,7 @@ def test_tma_step_updates_discriminators_before_the_adversarial_term(setup):
     trainer.forward_recon = spy
     before = {k: {n: p.detach().clone() for n, p in m.state_dict().items()} for k, m in port.items()}
     torch.manual_seed(0)
-    metrics = trainer.train_step(_batch(batch), epoch=cfg.loss_params.TMA_epoch,
+    metrics = trainer.train_step(_batch(batch), epoch=cfg.loss_params.TMA_epoch, iters=0,
                                  rng=np.random.default_rng(0))
     assert state.step == 1 and all(np.isfinite(v) for v in metrics.values())
     assert {"d_loss", "gen", "s2s", "mono", "slm", "mel", "g_loss"} <= set(metrics)

@@ -135,9 +135,10 @@ def test_s2s_ce_loss(rng):
     (6, 12, 1, 1, 0, 1, False),
 ])
 def test_snconv2d_power_iteration(rng, cin, cout, k, stride, pad, groups, bias):
-    """A train-mode call runs one power iteration in f32, stores the new
-    (u, v) without gradient and divides by the new sigma, whose gradient
-    reaches the kernel through W (JAX `update_stats=True`)."""
+    """An update_stats=True call runs one power iteration in f32, divides by
+    the new sigma, whose gradient reaches the kernel through W, and stores
+    the new (u, v) without gradient on commit_spectral_updates (JAX
+    `update_stats=True`)."""
     x = rng.standard_normal((2, 11, 13, cin)).astype(np.float32)
     mod = jl.SNConv2d(cout, (k, k), stride=(stride, stride), padding=(pad, pad), groups=groups,
                       use_bias=bias)
@@ -156,8 +157,9 @@ def test_snconv2d_power_iteration(rng, cin, cout, k, stride, pad, groups, bias):
     pc._snconv2d(variables["params"], variables["spectral"], sd, "m")
     port = pl.SNConv2d(cin, cout, k, stride, pad, groups, bias).train()
     port.load_state_dict({n[2:]: t(v) for n, v in sd.items()})
-    got = port(t(x.transpose(0, 3, 1, 2)))
+    got = port(t(x.transpose(0, 3, 1, 2)), update_stats=True)
     assert rel_err(got.detach().numpy().transpose(0, 2, 3, 1), want) < 1e-5
+    pl.commit_spectral_updates(port)
     after = {}
     pc._snconv2d(grads, spectral, after, "m")  # the converter maps grads like params
     for name in ("weight_u", "weight_v"):
@@ -165,9 +167,10 @@ def test_snconv2d_power_iteration(rng, cin, cout, k, stride, pad, groups, bias):
         assert rel_err(getattr(port, name), after[f"m.{name}"]) < 1e-5, name
     (got * t(dy.transpose(0, 3, 1, 2))).sum().backward()
     assert rel_err(port.weight_orig.grad, after["m.weight_orig"]) < 1e-5
-    port.eval()  # eval mode keeps the stored vectors
+    port.eval()  # a call without update_stats keeps the stored vectors
     u = port.weight_u.clone()
     port(t(x.transpose(0, 3, 1, 2)))
+    pl.commit_spectral_updates(port)
     assert torch.equal(port.weight_u, u)
 
 

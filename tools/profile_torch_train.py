@@ -1,18 +1,20 @@
-"""Step times and device-time breakdown of the port's stage-1 training on one GPU.
+"""Step times and device-time breakdown of the port's training on one GPU.
 
-    python3 tools/profile_torch_train.py [--steps 3] [--trace-dir DIR]
+    python3 tools/profile_torch_train.py [--stage first|second] [--steps 3] [--trace-dir DIR]
 
 Full-width Config() (LJSpeech, iSTFTNet; batch 16, max_len 400, a clip of
 200 half-frames) with seeded random weights, on chip_smoke.py's fixture of
-32 seeded utterances of 6-9 s. For each phase (before TMA, then from TMA
-on): `--steps` steps timed on the host clock (each ends in a host sync:
-the metrics are copied to the host), then one torch.profiler trace of a
-step: kernel time by op, kernel launches, the device busy share (summed
-kernel time over the step's wall; one stream, so kernels do not overlap)
-and the host time, kernel time and launches of the step's parts (the
-trainer's profiler ranges). The profiler slows the host, so its wall
-exceeds the timed steps'. `--trace-dir` keeps the Chrome traces. Needs a
-CUDA device.
+32 seeded utterances of 6-9 s. For each phase of the stage (stage 1:
+before TMA, then from TMA on; stage 2: before diffusion, with it, then
+joint, where the SLM-adversarial pass runs): `--steps` steps timed on the
+host clock (each ends in a host sync: the metrics are copied to the host)
+and their peak memory, then one torch.profiler trace of a step (in the
+joint phase, one that also steps the WavLM discriminator): kernel time by
+op, kernel launches, the device busy share (summed kernel time over the
+step's wall; one stream, so kernels do not overlap) and the host time,
+kernel time and launches of the step's parts (the trainer's profiler
+ranges). The profiler slows the host, so its wall exceeds the timed
+steps'. `--trace-dir` keeps the Chrome traces. Needs a CUDA device.
 """
 
 import argparse
@@ -33,14 +35,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from chip_smoke import training_fixture  # noqa: E402
 from profile_torch_synth import stage_breakdown  # noqa: E402
 from styletts2_tpu_torch.config import Config  # noqa: E402
-from styletts2_tpu_torch.train.run import setup  # noqa: E402
-from styletts2_tpu_torch.train.stage1 import Stage1Trainer  # noqa: E402
+from styletts2_tpu_torch.train.run import TRAINERS, setup  # noqa: E402
 
-PARTS = ("forward", "discriminators", "adversarial", "backward", "optimizer")
+PARTS = ("forward", "discriminators", "adversarial", "backward", "optimizer", "slm", "slm_d")
 
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--stage", choices=("first", "second"), default="first")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace-dir", help="where to keep the Chrome traces")
     args = ap.parse_args()
@@ -55,28 +57,35 @@ def main():
         cfg = Config()
         cfg.data_params = training_fixture(Path(tmp) / "data")
         cfg.log_dir = str(Path(tmp) / "logs")
-        state, train_loader, _ = setup(cfg, torch.device("cuda"), logging.getLogger("profile"))
-        trainer = Stage1Trainer(cfg, state, "cuda")
+        state, train_loader, _ = setup(cfg, torch.device("cuda"), logging.getLogger("profile"),
+                                       args.stage)
+        lp, wd_every = cfg.loss_params, cfg.slmadv_params.iter
+        trainer = TRAINERS[args.stage](cfg, state, "cuda")
+        # the WavLM discriminator steps when (i + 1) % iter == 0
+        step = trainer.train_step
+        phases = ((("pre-TMA", 0), ("TMA", lp.TMA_epoch)) if args.stage == "first" else
+                  (("pre-diffusion", 0), ("diffusion", lp.diff_epoch), ("joint", lp.joint_epoch)))
         batches = list(train_loader)
         rng = np.random.default_rng(1)
-        for phase, epoch in (("pre-TMA", 0), ("TMA", cfg.loss_params.TMA_epoch)):
+        for phase, epoch in phases:
             torch.cuda.reset_peak_memory_stats()
             step_ms = []
             for i in range(args.steps):
                 t0 = time.perf_counter()
-                trainer.train_step(batches[i % len(batches)], epoch, rng)
+                step(batches[i % len(batches)], epoch, i, rng)
                 step_ms.append((time.perf_counter() - t0) * 1e3)
-            peak = torch.cuda.max_memory_allocated()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                trainer.train_step(batches[0], epoch, rng)
+                metrics = step(batches[0], epoch, wd_every - 1, rng)
                 wall_ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
             print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=20))
             trace = Path(args.trace_dir or tmp) / f"train_{phase}.json"
             trace.parent.mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(trace))
             parts = stage_breakdown(trace, PARTS)
-            print(json.dumps({"phase": phase, "batch": cfg.batch_size, "step_ms": step_ms,
+            print(json.dumps({"stage": args.stage, "phase": phase, "batch": cfg.batch_size,
+                              "step_ms": step_ms, "metrics": metrics,
                               "peak_memory_gib": peak / 2 ** 30, "profiled_wall_ms": wall_ms,
                               "kernel_ms": parts["kernel_ms"],
                               "kernel_launches": parts["kernel_launches"],
