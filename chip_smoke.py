@@ -5,17 +5,20 @@
 
 Phases, one line each; any failure raises, so the exit code is non-zero:
   1. device: the card's name and power limit; TF32 off for convs and matmuls
+     (`utils.set_f32_compute`, as the entry points) and the flags after it
   2. build: compile the CUDA kernel from styletts2_tpu_torch/csrc/
   3. kernel: the fused AdaIN+snake kernel (K1) against its plain PyTorch
      version at both decoders' shapes of an 8 s utterance, the server's
-     batched HiFi-GAN shape, the training shapes, the JAX tests' shapes, an
-     odd T, rows that stream from global memory, bf16 split over 8 blocks,
-     and rows split over a forced cluster of k blocks (odd T at every k,
-     T < 16); two launches give the same bits. At the main paths' shapes,
-     the card's time (CUDA graphs of many calls, CUDA events) of the kernel
-     and the plain version, cold (inputs rotated over 3x the L2) and warm,
-     beside the bound (bytes at 3.35 TB/s), F.instance_norm's time as a
-     yardstick, and an eager call's time (the host's launch included)
+     batched HiFi-GAN shape and the training shapes, each in f32 and bf16
+     (the bf16 decoder, bf16 training), the JAX tests' shapes, an odd T,
+     rows that stream from global memory, and rows split over a forced
+     cluster of k blocks (odd T at every k in both dtypes, T < 16); two
+     launches give the same bits. At the main paths' shapes, the card's
+     time (CUDA graphs of many calls, CUDA events) of the kernel and the
+     plain version, cold (inputs rotated over 3x the L2) and warm, beside
+     the bound (bytes at 3.35 TB/s; a bf16 row is half an f32 one's),
+     F.instance_norm's time as a yardstick, and an eager call's time (the
+     host's launch included)
   4. LJSpeech path: full-width Config() synthesis with seeded random weights
      answers 3 requests; each waveform is finite, sum(durations) * 600 long,
      and its decode launched the kernel 48 times
@@ -37,10 +40,11 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      zeroed and the Generator's head kept out of tanh's saturation
   9. backward kernel: the fused op's backward kernel (K2) against its plain
      version (`adain_snake_bwd_ref`) and against autograd through
-     `adain_snake_ref`, at the stage-1 training shapes (batch 16, a 200-frame
-     clip), an odd small shape, bf16, a streamed row and forced clusters;
-     two launches give the same bits; cold and warm times of both on the
-     card (CUDA graphs) at the training shapes, beside the bound
+     `adain_snake_ref`, at the training shapes (batch 16 and the SLM pass's
+     8, a 200-frame clip) in f32 and bf16, an odd small shape, a streamed
+     row and forced clusters; two launches give the same bits; cold and
+     warm times of both on the card (CUDA graphs) at the training shapes,
+     beside the bound
  10. stage-1 training: `train.run.run_stage("first", Config(), ...)` on a
      seeded fixture of 32 utterances of 6-9 s at full width, batch 16,
      max_len 400, TMA from epoch 1 of 2: 2 pre-TMA and 2 TMA steps, each
@@ -69,12 +73,28 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      width, the same weights on the card and on the CPU (eval mode, draws
      from the host, the source's STFT phase zeroed): losses within 1e-4,
      every module's gradient within 3e-2 (L2)
+ 15. bf16 serving (`bf16_serving_phase`): `Synthesizer(decoder_dtype=
+     "bfloat16")` of Config() and libritts_config() at full width answers
+     3 requests each, 48 / 96 K1 launches per decode all with a bf16 x, 0
+     plain-version calls; durations equal to an f32 synthesizer's with the
+     same bf16-rounded decoder weights, both warm latencies, the
+     bf16-vs-f32 compute MCD (printed; held <= 2.5 dB as the test harness
+     decodes random weights: head gain scaled, HiFi-GAN's sines zeroed); 8
+     concurrent requests through `serve --decoder-dtype bfloat16`
+ 16. bf16 training (`bf16_training_phase`): `mixed_precision: "bf16"` at
+     batch 16, max_len 400 on phase 10's fixture through `run_stage`: 2
+     stage-1 steps from TMA on and 2 stage-2 steps of each phase, every
+     step's K1/K2 launches at the f32 counts and all with a bf16 x, the
+     first step of each stage within 0.15 of an f32 step from the same
+     weights and draws, f32 master weights and Adam moments; step times and
+     peak memory beside phases 10 and 12's
 Every number line carries the card's name and power limit. Then a JSON line
-of the kernels and, last, {"ok": true, "device": {...}}.
+of the kernels (f32 and bf16 times) and, last, {"ok": true, "device": {...}}.
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero before printing a result.
 """
 
+import collections
 import copy
 import io
 import json
@@ -108,40 +128,40 @@ TARGET_AUDIO_SEC = 8.0  # random-init durations run ~8x long; pin the length
 SAMPLES_PER_FRAME = 600  # at 24 kHz, as styletts2_tpu_torch.inference
 CALLS_PER_DECODE = 48  # iSTFTNet: 8 AdaINResBlock1 x 3 dilations x 2
 CALLS_PER_HIFIGAN_DECODE = 96  # HiFi-GAN: 4 stages x 4 AdaINResBlock1 x 3 dilations x 2
-KERNEL_CASES = [  # (B, C, T), dtype name
-    ((1, 256, 8000), "float32"),  # iSTFTNet stage-0 blocks at an 8 s utterance (F = 400)
-    ((1, 128, 48001), "float32"),  # iSTFTNet stage-1 blocks: 120 F + 1
-    ((1, 256, 6400), "float32"),  # HiFi-GAN stages at an 8 s utterance (F = 320): 20 F
-    ((1, 128, 32000), "float32"),  # 100 F
-    ((1, 64, 96000), "float32"),  # 300 F
-    ((1, 32, 192000), "float32"),  # 600 F
-    ((8, 32, 192000), "float32"),  # the last stage of a server batch of 8
+# the main paths' shapes, each in f32 and, for the bf16 decoder and bf16
+# training, in bf16
+MAIN_SHAPES = [
+    (1, 256, 8000),  # iSTFTNet stage-0 blocks at an 8 s utterance (F = 400)
+    (1, 128, 48001),  # iSTFTNet stage-1 blocks: 120 F + 1
+    (1, 256, 6400),  # HiFi-GAN stages at an 8 s utterance (F = 320): 20 F
+    (1, 128, 32000),  # 100 F
+    (1, 64, 96000),  # 300 F
+    (1, 32, 192000),  # 600 F
+    (8, 32, 192000),  # the last stage of a server batch of 8
+    (16, 256, 4000),  # stage-1 training: batch 16, a 200-frame clip
+    (16, 128, 24001),
+    (8, 256, 4000),  # stage 2's SLM pass: 8 clips of 200 frames
+    (8, 128, 24001),
+]
+TRAIN_SHAPES = MAIN_SHAPES[-4:]
+KERNEL_CASES = [(shape, dt) for dt in ("float32", "bfloat16") for shape in MAIN_SHAPES] + [
     ((2, 256, 24), "float32"),  # tests/test_pallas.py cases
     ((3, 256, 128), "float32"),
     ((2, 256, 160), "bfloat16"),
     ((2, 100, 37), "float32"),  # odd T below 64
-    ((16, 256, 4000), "float32"),  # stage-1 training: batch 16, a 200-frame clip
-    ((16, 128, 24001), "float32"),
-    ((8, 256, 4000), "float32"),  # stage 2's SLM pass: 8 clips of 200 frames
-    ((8, 128, 24001), "float32"),
 ]
-BWD_CASES = [  # the training shapes, an odd small shape and bf16
-    ((16, 256, 4000), "float32"),
-    ((16, 128, 24001), "float32"),
-    ((8, 256, 4000), "float32"),
-    ((8, 128, 24001), "float32"),
-    ((2, 100, 37), "float32"),
+BWD_CASES = [(shape, dt) for dt in ("float32", "bfloat16") for shape in TRAIN_SHAPES] + [
+    ((2, 100, 37), "float32"),  # an odd small shape
     ((2, 256, 160), "bfloat16"),
 ]
 # (shape, dtype, cluster size k or None for the plan's own) beyond the main
 # paths: rows split over a forced cluster of k blocks, with odd T not
-# divisible by k at every k, T < 16 (ranks past the row's end) and bf16 at
-# k = 8; then rows whose slices exceed shared memory and stream (odd T),
-# and, forward only, bf16 split over 8 blocks
-SPLIT_CASES = [((2, 5, 1001), "float32", k) for k in (1, 2, 4, 8)] + [
-    ((1, 3, 13), "float32", 8), ((2, 4, 5), "float32", 4), ((2, 5, 1001), "bfloat16", 8)]
-EDGE_CASES = SPLIT_CASES + [((1, 32, 480000), "float32", None), ((1, 8, 480001), "float32", None),
-                            ((1, 32, 192000), "bfloat16", None)]
+# divisible by k at every k in both dtypes (a bf16 row of odd T starts 2
+# bytes off a 16-byte boundary), and T < 16 (ranks past the row's end);
+# then rows whose slices exceed shared memory and stream (odd T)
+SPLIT_CASES = [((2, 5, 1001), dt, k) for dt in ("float32", "bfloat16") for k in (1, 2, 4, 8)] + [
+    ((1, 3, 13), "float32", 8), ((2, 4, 5), "float32", 4)]
+EDGE_CASES = SPLIT_CASES + [((1, 32, 480000), "float32", None), ((1, 8, 480001), "float32", None)]
 BWD_EDGE_CASES = SPLIT_CASES + [((1, 16, 240001), "float32", None)]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM peak HBM3 bandwidth
@@ -153,6 +173,8 @@ SMALL = {"max_len": 80, "model_params": {  # the reduced width of phase 11
     "decoder": {"upsample_initial_channel": 64, "resblock_kernel_sizes": [3],
                 "resblock_dilation_sizes": [[1, 3]]}}}
 GRAD_TOL = 3e-2  # L2 of the gradient difference over its norm, per module
+MCD_BOUND = 2.5  # dB, bf16 against f32 compute (the JAX package's tests/test_bf16.py)
+STEP_TOL = 0.15  # a bf16 step's losses against f32's (tests/test_mixed_precision.py)
 STAGE2_BATCHES = (16, 12, 8)  # phase 12 runs at the first that fits the card
 REPO = Path(__file__).resolve().parent
 
@@ -238,6 +260,23 @@ def kernel_inputs(g, dev, shape, dtype, with_dy=False):
     return x, gamma, beta, alpha, torch.randn(shape, generator=g, device=dev).to(dtype)
 
 
+def _zero_sines(self, f0, generator=None):
+    """SineGen.forward with the harmonic sines zeroed (the voicing kept)."""
+    uv = (f0 > self.voiced_threshold).float()
+    return torch.zeros(f0.shape[:2] + (self.dim,), device=f0.device), uv
+
+
+def _sines_off(fn, *args, **kwargs):
+    """`fn(*args, **kwargs)` with the NSF source's harmonic sines zeroed."""
+    import styletts2_tpu_torch.models.decoder_istft as pdi
+
+    sines, pdi.SineGen.forward = pdi.SineGen.forward, _zero_sines
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        pdi.SineGen.forward = sines
+
+
 def _host_draws(fn, *args, **kwargs):
     """`fn(*args, **kwargs)` with every random draw taken from one seeded CPU
     generator, so that two devices decode the same inputs, and the NSF
@@ -259,13 +298,9 @@ def _host_draws(fn, *args, **kwargs):
         mag, phase = magphase(*a)
         return mag, torch.zeros_like(phase)
 
-    def zero_sines(self, f0, generator=None):
-        uv = (f0 > self.voiced_threshold).float()
-        return torch.zeros(f0.shape[:2] + (self.dim,), device=f0.device), uv
-
     torch.rand, torch.randn, pdi.stft_magphase = draw(rand), draw(randn), zero_phase
     hifigan = getattr(getattr(fn, "__self__", None), "hifigan", False)
-    pdi.SineGen.forward = zero_sines if hifigan else sines
+    pdi.SineGen.forward = _zero_sines if hifigan else sines
     try:
         return fn(*args, **kwargs)
     finally:
@@ -273,39 +308,75 @@ def _host_draws(fn, *args, **kwargs):
         pdi.SineGen.forward = sines
 
 
+class _Tally:
+    """While entered: the kernels' launches by (kernel, x's dtype name), K1
+    as `_forward_kernel` is called and K2 as `adain_snake_bwd` is, and the
+    plain versions' calls (`plain`)."""
+
+    WRAPPED = {"_forward_kernel": "K1", "adain_snake_bwd": "K2", "adain_snake_ref": "plain",
+               "adain_snake_bwd_ref": "plain"}
+
+    def __init__(self, op):
+        self.op, self.n = op, collections.Counter()
+
+    def __enter__(self):
+        self._saved = {name: getattr(self.op, name) for name in self.WRAPPED}
+
+        def counted(key, fn):
+            def call(x, *a, **k):
+                self.n[key, str(x.dtype).split(".")[-1]] += 1
+                return fn(x, *a, **k)
+            return call
+
+        for name, key in self.WRAPPED.items():
+            setattr(self.op, name, counted(key, self._saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.op, name, fn)
+
+    @property
+    def plain(self):
+        return sum(v for (key, _), v in self.n.items() if key == "plain")
+
+    def since(self, before):
+        """The launches by (kernel, dtype) since the snapshot `before`."""
+        return {k: v - before.get(k, 0) for k, v in self.n.items()
+                if k[0] != "plain" and v - before.get(k, 0)}
+
+
 class _Counts:
-    """Kernel launches, plain-version calls and decoder calls of one phase:
-    `with _Counts(op, decoder) as c:` sets them to 0 on entry and reads them
-    on exit."""
+    """Kernel launches (and their dtypes), plain-version calls and decoder
+    calls of one phase: `with _Counts(op, decoder) as c:` sets them to 0 on
+    entry and reads them on exit."""
 
     def __init__(self, op, decoder):
         self.op, self.decoder = op, decoder
 
     def __enter__(self):
-        self.plain_calls, self.decodes = 0, 0
-        self._plain = self.op.adain_snake_ref
-
-        def plain(*a, **k):
-            self.plain_calls += 1
-            return self._plain(*a, **k)
+        self.decodes = 0
 
         def decode(module, args):
             self.decodes += 1
 
-        self.op.adain_snake_ref = plain
         self._hook = self.decoder.register_forward_pre_hook(decode)
+        self._tally = _Tally(self.op).__enter__()
         self.op.adain_snake.launches = 0
         return self
 
     def __exit__(self, *exc):
         self.launches = self.op.adain_snake.launches
-        self.op.adain_snake_ref = self._plain
+        self._tally.__exit__(*exc)
+        self.plain_calls = self._tally.plain
+        self.dtypes = {dt: n for (key, dt), n in self._tally.n.items() if key == "K1"}
         self._hook.remove()
 
-    def check(self, per_decode, what):
-        if self.plain_calls or self.launches != per_decode * self.decodes or not self.decodes:
-            raise RuntimeError(f"{what}: {self.launches} kernel launches for {self.decodes} "
-                               f"decodes, {self.plain_calls} plain-version calls")
+    def check(self, per_decode, what, dtype="float32"):
+        if self.plain_calls or self.launches != per_decode * self.decodes or not self.decodes \
+                or self.dtypes != {dtype: self.launches}:
+            raise RuntimeError(f"{what}: {self.launches} kernel launches ({self.dtypes}) for "
+                               f"{self.decodes} decodes, {self.plain_calls} plain-version calls")
 
 
 def _requests(op, syn, tag, smi, per_decode, trim, **kwargs):
@@ -442,12 +513,13 @@ def _times_text(name, pairs):
 def kernel_phase(op, dev, smi):
     """Phase 3: K1 against its plain version at every case, twice (the same
     bits), and at forced cluster sizes; cold and warm times at the main
-    paths' shapes. Returns (max abs error over the f32 cases, {shape:
-    {"cold": (kernel, plain), "warm": ..., "bound": ms}})."""
+    paths' shapes in both dtypes. Returns ({dtype name: max abs error},
+    {(shape, dtype name): {"cold": (kernel, plain), "warm": ..., "bound":
+    ms}})."""
     import torch.nn.functional as F
 
     g = torch.Generator(dev).manual_seed(0)
-    max_err, timings = 0.0, {}
+    max_err, timings = {"float32": 0.0, "bfloat16": 0.0}, {}
     for shape, dt, k in [(shape, dt, None) for shape, dt in KERNEL_CASES] + EDGE_CASES:
         dtype = getattr(torch, dt)
         args = kernel_inputs(g, dev, shape, dtype)
@@ -463,8 +535,7 @@ def kernel_phase(op, dev, smi):
         plan = op.plan_of(args[0], k=k)
         line = (f"[3 kernel] {shape} {dt}, {_plan_text(plan, shape)}: max_abs_err {err:.3e} "
                 f"(tol {TOL[dt]:g}), repeat bit-equal")
-        if dt == "float32":
-            max_err = max(max_err, err)
+        max_err[dt] = max(max_err[dt], err)
         if (shape, dt) in KERNEL_CASES and shape[2] >= 4000:  # the main paths' shapes
             iters = 100 if args[0].numel() < 10 ** 7 else 40
             nbytes = args[0].numel() * args[0].element_size()
@@ -477,8 +548,9 @@ def kernel_phase(op, dev, smi):
                 inorm = [graph_ms(lambda x, *_: F.instance_norm(x), iters, sets)
                          for sets in (rotation(args, nbytes), [args])]
             cold = (kc[0] + kc[1]) / 2
-            timings[shape] = {"cold": (cold, (pc[0] + pc[1]) / 2),
-                              "warm": ((kw[0] + kw[1]) / 2, (pw[0] + pw[1]) / 2), "bound": bound}
+            timings[shape, dt] = {"cold": (cold, (pc[0] + pc[1]) / 2),
+                                  "warm": ((kw[0] + kw[1]) / 2, (pw[0] + pw[1]) / 2),
+                                  "bound": bound}
             line += (f"; card ms: {_times_text('kernel cold', [kc])} warm {kw[0]:.4f}/{kw[1]:.4f}, "
                      f"{_times_text('plain cold', [pc])} warm {pw[0]:.4f}/{pw[1]:.4f}; bound "
                      f"{bound:.4f}, cold share {bound / cold:.0%}; yardstick F.instance_norm "
@@ -498,10 +570,10 @@ def backward_phase(op, dev, smi):
     """Phase 9: the backward kernel against its plain version and autograd
     through the forward's plain version, twice (the same bits), and at
     forced cluster sizes; cold and warm times at the training shapes.
-    Returns (dx's max abs error over the f32 cases, {shape: {"cold":
-    (kernel ms, plain ms), "warm": ..., "bound": ms}})."""
+    Returns ({dtype name: dx's max abs error}, {(shape, dtype name):
+    {"cold": (kernel ms, plain ms), "warm": ..., "bound": ms}})."""
     g = torch.Generator(dev).manual_seed(1)
-    bwd_err, bwd_timings = 0.0, {}
+    bwd_err, bwd_timings = {"float32": 0.0, "bfloat16": 0.0}, {}
     for shape, dt, k in [(shape, dt, None) for shape, dt in BWD_CASES] + BWD_EDGE_CASES:
         dtype = getattr(torch, dt)
         args = kernel_inputs(g, dev, shape, dtype, with_dy=True)
@@ -526,8 +598,7 @@ def backward_phase(op, dev, smi):
                 f"{errs[0]:.2e}, dgamma {errs[1]:.2e}, dbeta {errs[2]:.2e}, dalpha {errs[3]:.2e}; "
                 f"dx max abs err {float((got[0].float() - plain[0].float()).abs().max()):.3e} "
                 f"(tol {TOL[dt]:g} of each peak, and against autograd); repeat bit-equal")
-        if dt == "float32":
-            bwd_err = max(bwd_err, float((got[0] - plain[0]).abs().max()))
+        bwd_err[dt] = max(bwd_err[dt], float((got[0].float() - plain[0].float()).abs().max()))
         if (shape, dt) in BWD_CASES and shape[2] >= 4000:  # the training shapes
             nbytes = 2 * args[0].numel() * args[0].element_size()
             bound = bound_ms(shape, dt, backward=True)
@@ -536,7 +607,7 @@ def backward_phase(op, dev, smi):
                 (pc, kc) = _turns(fns, rotation(args, nbytes), 10)
                 (pw, kw) = _turns(fns, [args], 10)
             cold = (kc[0] + kc[1]) / 2
-            bwd_timings[shape] = {"cold": (cold, (pc[0] + pc[1]) / 2),
+            bwd_timings[shape, dt] = {"cold": (cold, (pc[0] + pc[1]) / 2),
                                   "warm": ((kw[0] + kw[1]) / 2, (pw[0] + pw[1]) / 2),
                                   "bound": bound}
             line += (f"; card ms: {_times_text('kernel cold', [kc])} warm {kw[0]:.4f}/{kw[1]:.4f}, "
@@ -551,7 +622,7 @@ def backward_phase(op, dev, smi):
 def training_phase(op, build_dir, smi):
     """Phase 10: stage-1 training at full width through `run_stage`, then a
     resumed call. Returns the forward and backward kernel launches of both
-    calls."""
+    calls and the first call's {"tma": TMA step ms, "peak": bytes}."""
     from styletts2_tpu_torch.config import Config
     from styletts2_tpu_torch.train import run as train_run
     from styletts2_tpu_torch.train.stage1 import Stage1Trainer
@@ -562,15 +633,7 @@ def training_phase(op, build_dir, smi):
         cfg.log_dir = str(Path(tdir) / "logs")
         cfg.loss_params.TMA_epoch, cfg.epochs_1st, cfg.log_interval = 1, 2, 1
         steps, before = [], {}
-        train_step, plain_fwd, plain_bwd = (Stage1Trainer.train_step, op.adain_snake_ref,
-                                            op.adain_snake_bwd_ref)
-        plain_calls = [0]
-
-        def counted(fn):
-            def call(*a, **k):
-                plain_calls[0] += 1
-                return fn(*a, **k)
-            return call
+        train_step, tally = Stage1Trainer.train_step, _Tally(op)
 
         def timed_step(self, batch, epoch, iters, rng):
             if not before:
@@ -584,10 +647,10 @@ def training_phase(op, build_dir, smi):
             return m
 
         Stage1Trainer.train_step = timed_step
-        op.adain_snake_ref, op.adain_snake_bwd_ref = counted(plain_fwd), counted(plain_bwd)
         torch.cuda.reset_peak_memory_stats()
         op.adain_snake.launches = op.adain_snake.bwd_launches = 0
         try:
+            tally.__enter__()
             t0 = time.perf_counter()
             state = train_run.run_stage("first", cfg, device="cuda")
             wall = time.perf_counter() - t0
@@ -605,7 +668,7 @@ def training_phase(op, build_dir, smi):
             del state
         finally:
             Stage1Trainer.train_step = train_step
-            op.adain_snake_ref, op.adain_snake_bwd_ref = plain_fwd, plain_bwd
+            tally.__exit__()
         train_k1, train_k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
         log = (Path(cfg.log_dir) / "train.log").read_text()
         written = sorted(p.name for p in Path(cfg.log_dir).iterdir())
@@ -627,10 +690,10 @@ def training_phase(op, build_dir, smi):
     tma = [st["ms"] for st in steps[:first_steps] if st["epoch"] >= cfg.loss_params.TMA_epoch]
     if len(pre) < 2 or len(tma) < 2 or first_epoch != 2:
         raise RuntimeError(f"training: {len(pre)} pre-TMA and {len(tma)} TMA steps, epoch {first_epoch}")
-    if plain_calls[0] or train_k1 != CALLS_PER_STEP * len(steps) + 48 * len(evals) or \
+    if tally.plain or train_k1 != CALLS_PER_STEP * len(steps) + CALLS_PER_DECODE * len(evals) or \
             train_k2 != CALLS_PER_STEP * len(steps):
         raise RuntimeError(f"training: {train_k1} forward / {train_k2} backward launches for "
-                           f"{len(steps)} steps and {len(evals)} validations, {plain_calls[0]} plain calls")
+                           f"{len(steps)} steps and {len(evals)} validations, {tally.plain} plain calls")
     if not (np.isfinite(dec_delta) and dec_delta > 0):
         raise RuntimeError(f"training: the decoder moved by {dec_delta}")
     resume = [x for x in log.splitlines() if "auto-resuming from" in x]
@@ -647,7 +710,7 @@ def training_phase(op, build_dir, smi):
           f"validation), 0 plain-version calls; wall {wall:.1f} s [{smi}]", flush=True)
     print(f"[10 training] {resume[-1].split(': ', 1)[-1]}; then 1 step to (step, epoch) {resumed}; "
           f"files {written}", flush=True)
-    return train_k1, train_k2
+    return train_k1, train_k2, {"tma": tma, "peak": peak}
 
 
 def training_reference_phase(dev):
@@ -711,30 +774,42 @@ def _stage2_launches(joint, decoder_trained, slm_sampled):
     return 48 * (3 if joint else 2), k2
 
 
+def _f32_masters(state, tag):
+    """Raise unless every parameter of the bf16 module set and its Adam
+    moments are f32 (bf16 training keeps its masters f32)."""
+    from styletts2_tpu_torch.train.mp import BF16_MODULES
+
+    for k in set(BF16_MODULES) & set(state.models):
+        opt = state.opts.get(k)
+        for n, p in state.models[k].named_parameters():
+            moments = opt.state.get(p, {}) if opt is not None else {}
+            bad = [m for m, v in moments.items() if torch.is_tensor(v) and v.dtype != torch.float32]
+            if p.dtype != torch.float32 or bad:
+                raise RuntimeError(f"{tag}: {k}.{n} is {p.dtype}, moments {bad} not f32")
+
+
 def _stage2_run(op, stage, cfg, smi, tag, **kwargs):
     """`run_stage(stage, cfg, device="cuda", **kwargs)` with every step
     timed and checked: finite metrics, K1/K2 launches as the phase's decoder
     runs make them (48 K1 each, 48 K2 each that takes a gradient), a
     positive slm_valid_frac in joint steps, the watched modules moving just
-    when the phase steps them; then 48 K1 per validation batch and 0
-    plain-version calls over the run. Returns (the steps, the final state's
+    when the phase steps them, every step's launches with an x of the
+    config's precision (bf16 under `mixed_precision: bf16`); then 48 f32 K1
+    per validation batch, 0 plain-version calls over the run, and f32
+    master weights and Adam moments. Returns (the steps, the final state's
     sigma_data, the peak memory, K1 and K2 launches, the train.log text)."""
     from styletts2_tpu_torch.train import run as train_run
     from styletts2_tpu_torch.train.stage2 import Stage2Trainer
 
-    steps, train_step, validate = [], Stage2Trainer.train_step, Stage2Trainer.validate
-    plain, n_val = [0], [0]
-    fwd_ref, bwd_ref = op.adain_snake_ref, op.adain_snake_bwd_ref
+    step_dtype = "bfloat16" if cfg.mixed_precision == "bf16" else "float32"
+    tally = _Tally(op)
 
-    def counted(fn):
-        def call(*a, **k):
-            plain[0] += 1
-            return fn(*a, **k)
-        return call
+    steps, train_step, validate = [], Stage2Trainer.train_step, Stage2Trainer.validate
+    n_val = [0]
 
     def timed_step(self, batch, epoch, iters, rng):
         watched = {k: _flat(self.models[k]) for k in ("predictor", "bert", "diffusion", "decoder", "wd")}
-        k1, k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
+        k1, k2, by = op.adain_snake.launches, op.adain_snake.bwd_launches, dict(tally.n)
         t0 = time.perf_counter()
         m = train_step(self, batch, epoch, iters, rng)  # ends in a host sync (the metrics)
         ms = (time.perf_counter() - t0) * 1e3
@@ -742,6 +817,7 @@ def _stage2_run(op, stage, cfg, smi, tag, **kwargs):
         del watched
         steps.append({"epoch": epoch, "iters": iters, "ms": ms, "metrics": m, "moved": moved,
                       "k1": op.adain_snake.launches - k1, "k2": op.adain_snake.bwd_launches - k2,
+                      "dtypes": {dt for _, dt in tally.since(by)},
                       "batch": len(batch.mel_lengths)})
         return m
 
@@ -751,16 +827,16 @@ def _stage2_run(op, stage, cfg, smi, tag, **kwargs):
         return out
 
     Stage2Trainer.train_step, Stage2Trainer.validate = timed_step, counted_validate
-    op.adain_snake_ref, op.adain_snake_bwd_ref = counted(fwd_ref), counted(bwd_ref)
     torch.cuda.reset_peak_memory_stats()
     op.adain_snake.launches = op.adain_snake.bwd_launches = 0
     try:
-        state = train_run.run_stage(stage, cfg, device="cuda", **kwargs)
+        with tally:
+            state = train_run.run_stage(stage, cfg, device="cuda", **kwargs)
         sigma = state.sigma_data
+        _f32_masters(state, tag)
         del state
     finally:
         Stage2Trainer.train_step, Stage2Trainer.validate = train_step, validate
-        op.adain_snake_ref, op.adain_snake_bwd_ref = fwd_ref, bwd_ref
     peak = torch.cuda.max_memory_allocated()
     k1, k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
     torch.cuda.empty_cache()
@@ -776,23 +852,26 @@ def _stage2_run(op, stage, cfg, smi, tag, **kwargs):
               + " ".join(f"{k}={v:.4f}" for k, v in (m or {}).items()) + f" [{smi}]", flush=True)
         if m is None or not all(np.isfinite(v) for v in m.values()):
             raise RuntimeError(f"{tag} step {i}: metrics {m}")
-        if (st["k1"], st["k2"]) != want:
-            raise RuntimeError(f"{tag} step {i}: K1 {st['k1']} K2 {st['k2']}, not {want}")
+        if (st["k1"], st["k2"]) != want or st["dtypes"] != {step_dtype}:
+            raise RuntimeError(f"{tag} step {i}: K1 {st['k1']} K2 {st['k2']} with x in "
+                               f"{st['dtypes']}, not {want} in {step_dtype}")
         if joint and not m["slm_valid_frac"] > 0:
             raise RuntimeError(f"{tag} step {i}: slm_valid_frac {m['slm_valid_frac']}")
         if st["moved"] != expect:
             raise RuntimeError(f"{tag} step {i}: moved {st['moved']}, expected {expect}")
-    if plain[0] or k1 != sum(st["k1"] for st in steps) + 48 * n_val[0] or \
-            k2 != sum(st["k2"] for st in steps):
+    val_f32 = tally.n["K1", "float32"] - sum(st["k1"] for st in steps if step_dtype == "float32")
+    if tally.plain or k1 != sum(st["k1"] for st in steps) + CALLS_PER_DECODE * n_val[0] or \
+            k2 != sum(st["k2"] for st in steps) or val_f32 != CALLS_PER_DECODE * n_val[0]:
         raise RuntimeError(f"{tag}: {k1} K1 / {k2} K2 launches for {len(steps)} steps and "
-                           f"{n_val[0]} validation batches, {plain[0]} plain calls")
+                           f"{n_val[0]} validation batches, {tally.plain} plain calls")
     return steps, sigma, peak, k1, k2, log
 
 
 def stage2_phase(op, build_dir, smi):
     """Phases 12 and 13: stage 2 at full width through `run_stage` from the
     port's own first stage, a resumed call, then finetuning from its
-    weights. Returns the K1 and K2 launches of all their calls."""
+    weights. Returns the K1 and K2 launches of all their calls and phase
+    12's first call's {"ms": {phase: step ms}, "peak": bytes}."""
     from styletts2_tpu_torch.config import Config, config_from_path
     from styletts2_tpu_torch.train import run as train_run
 
@@ -817,6 +896,7 @@ def stage2_phase(op, build_dir, smi):
             raise RuntimeError("stage 2: no batch fits the card")
         wall = time.perf_counter() - t0
         launches = [k1, k2]
+        summary = {"ms": _phase_ms(cfg, steps), "peak": peak}
         phases = [st["epoch"] for st in steps]
         if phases != [0, 0, 1, 1, 2, 2] or not steps[-1]["moved"]["wd"]:
             raise RuntimeError(f"stage 2: epochs {phases}, wd moved {[st['moved']['wd'] for st in steps]}")
@@ -855,7 +935,17 @@ def stage2_phase(op, build_dir, smi):
               f"wall; peak memory {peak / 2 ** 30:.2f} GiB; sigma_data -> {sigma!r}; launches K1 {k1} "
               f"K2 {k2}, 0 plain-version calls [{smi}]", flush=True)
     torch.cuda.empty_cache()
-    return launches
+    return launches, summary
+
+
+def _phase_ms(cfg, steps):
+    """{stage-2 phase: its steps' ms}."""
+    lp, out = cfg.loss_params, {}
+    for st in steps:
+        phase = ("joint" if st["epoch"] >= lp.joint_epoch else
+                 "diffusion" if st["epoch"] >= lp.diff_epoch else "pre-diffusion")
+        out.setdefault(phase, []).append(st["ms"])
+    return out
 
 
 def _stage2_losses_and_grads(models, cfg, device, batch, starts):
@@ -928,6 +1018,280 @@ def stage2_reference_phase(dev):
     del cpu_models, gpu_models
 
 
+def serve_burst(op, serve, build_dir, smi, tag, speed, extra=(), dtype="float32"):
+    """The CLI's server (`python -m styletts2_tpu_torch.serve --config
+    configs/config_libritts.yml --voices DIR` and `extra`, its defaults
+    otherwise: no PyYAML, seed-0 weights, window 15 ms, max batch 8) with
+    the seeded voice as a 22.05 kHz WAV, served on a thread instead of the
+    main one: a warm-up burst at the batched shapes, then SERVE_TEXTS as
+    concurrent /tts requests, each a 24 kHz WAV, in at least one fused
+    batch, 96 launches per decode call, all with an x of `dtype`. Returns
+    (the burst's _Counts, its wall s)."""
+    with tempfile.TemporaryDirectory(dir=build_dir) as vdir:
+        pcm = (np.clip(_voice(sr=22050), -1, 1) * 32767).astype(np.int16)
+        with wave.open(str(Path(vdir) / "seeded.wav"), "wb") as f:
+            f.setnchannels(1)
+            f.setsampwidth(2)
+            f.setframerate(22050)
+            f.writeframes(pcm.tobytes())
+        args = serve.parse_args(["--config", str(REPO / "configs" / "config_libritts.yml"),
+                                 "--voices", vdir, "--port", "0", *extra])
+        t0 = time.perf_counter()
+        server = serve.make_server(args)
+    print(f"[{tag}] make_server: {args.device}, decoder {args.decoder_dtype or 'float32'}, voices "
+          f"{sorted(server.voices)}, max batch {args.max_batch}, window {args.window_ms} ms; built "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    port = server.start_background(args.host, args.port)
+    try:
+        body = {"voice": "seeded", "speed": speed, "seed": 0}
+
+        def burst():
+            results = [None] * len(SERVE_TEXTS)
+
+            def go(i):
+                results[i] = _post(port, dict(body, text=SERVE_TEXTS[i]))
+
+            threads = [threading.Thread(target=go, args=(i,)) for i in range(len(SERVE_TEXTS))]
+            t0 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(300)
+            return results, time.perf_counter() - t0
+
+        burst()  # warm-up at the batched shapes
+        stats0 = dict(server.batcher.stats)
+        with _Counts(op, server.syn.models["decoder"]) as sv:
+            results, wall = burst()
+        sv.check(CALLS_PER_HIFIGAN_DECODE, tag, dtype)
+        audio = 0.0
+        for i, res in enumerate(results):
+            if res is None or res[0] != 200 or res[1] != "audio/wav":
+                raise RuntimeError(f"[{tag}] request {i}: {res and res[:2]}")
+            with wave.open(io.BytesIO(res[2])) as f:
+                frames = f.getnframes()
+                if f.getframerate() != 24000 or frames <= 0 or (frames + 50) % SAMPLES_PER_FRAME:
+                    raise RuntimeError(f"[{tag}] request {i}: {frames} frames at {f.getframerate()} Hz")
+            audio += frames / 24000.0
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as resp:
+            stats = json.loads(resp.read())["stats"]
+        batches = stats["batches"] - stats0["batches"]
+        fused = stats["batched_requests"] - stats0["batched_requests"]
+        if fused < 2:
+            raise RuntimeError(f"[{tag}] no fused batch ({stats})")
+        print(f"[{tag}] {len(results)} concurrent requests, {audio:.3f} s audio in {wall * 1e3:.1f} "
+              f"ms wall (window {args.window_ms} ms): aggregate RTF {audio / wall:.2f}x; {batches} "
+              f"batches ({fused} requests fused), {sv.decodes} decode calls, {sv.launches} kernel "
+              f"launches ({CALLS_PER_HIFIGAN_DECODE} per decode, x {dtype}), 0 plain-version calls "
+              f"[{smi}]", flush=True)
+    finally:
+        server.close()
+        del server
+    return sv, wall
+
+
+def bf16_serving_phase(op, serve, build_dir, smi):
+    """Phase 15: the bf16 decoder. For Config() and libritts_config() at full
+    width (seed-0 weights, the LibriTTS requests with the seeded voice's
+    style): `Synthesizer(cfg, decoder_dtype="bfloat16")` answers REQUESTS
+    with 48 / 96 K1 launches per decode, every one with a bf16 x, and 0
+    plain-version calls; then each request again on it and on an f32
+    Synthesizer whose decoder holds the same bf16-rounded weights (the JAX
+    package's tests/test_bf16.py method: the difference is the compute's),
+    warm, in turns: equal durations, finite waveforms of the expected
+    length, both latencies, and the MCD between the two. That MCD is
+    printed, and held to MCD_BOUND dB on a second pair decoded as phase 8
+    and tests/torch_parity.py decode random-init weights: the head gain
+    scaled (x0.1 iSTFTNet, whose exp head otherwise peaks ~5000, x0.01
+    HiFi-GAN, whose tanh is otherwise ~200x saturated) and, for HiFi-GAN,
+    whose every stage takes the raw source, the harmonic sines zeroed: a
+    tonal random-init output leaves mel bands empty that bf16's rounding
+    floor fills. Then a burst through `serve --decoder-dtype bfloat16`.
+    Returns the K1 launches of its counted runs."""
+    from styletts2_tpu_torch.config import Config, libritts_config
+    from styletts2_tpu_torch.eval import mcd
+    from styletts2_tpu_torch.inference import Synthesizer
+
+    launches, speed = 0, 1.0
+    for name, make, per_decode, trim in (("LJSpeech", Config, CALLS_PER_DECODE, 0),
+                                         ("LibriTTS", libritts_config, CALLS_PER_HIFIGAN_DECODE, 50)):
+        tag = f"15 bf16 {name}"
+        syn16 = Synthesizer(make(), seed=0, device="cuda", decoder_dtype="bfloat16")
+        syn32 = Synthesizer(make(), seed=0, device="cuda")
+        dec16, dec32 = syn16.models["decoder"], syn32.models["decoder"]
+
+        def hold_rounded():  # syn32's decoder: syn16's bf16 weights, upcast
+            with torch.no_grad():
+                for p32, p16 in zip(dec32.parameters(), dec16.parameters()):
+                    p32.copy_(p16.float())
+
+        hold_rounded()
+        kw = {"ref_s": syn16.compute_style(_voice())} if syn16.multispeaker else {}
+        natural = syn16.synthesize(BENCH_TEXT, seed=0, **kw)  # calibration; also the warm-up
+        speed = max(len(natural.wav) / 24000.0 / TARGET_AUDIO_SEC, 1.0)
+        for syn in (syn16, syn32):  # warm-up at every request's shapes
+            for text, seed in REQUESTS:
+                syn.synthesize(text, seed=seed, speed=speed, **kw)
+        with _Counts(op, dec16) as c:
+            _requests(op, syn16, tag, smi, per_decode, trim, speed=speed, **kw)
+        c.check(per_decode, tag, "bfloat16")
+        launches += c.launches
+        rows = []
+        for i, (text, seed) in enumerate(REQUESTS):
+            out, lat = {}, {"bf16": [], "f32": []}
+            for key, syn in (("bf16", syn16), ("f32", syn32), ("f32", syn32), ("bf16", syn16)):
+                t0 = time.perf_counter()
+                out.setdefault(key, syn.synthesize(text, seed=seed, speed=speed, **kw))
+                lat[key].append((time.perf_counter() - t0) * 1e3)
+            r16, r32 = out["bf16"], out["f32"]
+            if not np.array_equal(r16.pred_dur, r32.pred_dur):
+                raise RuntimeError(f"[{tag}] request {i}: durations {r16.pred_dur} vs {r32.pred_dur}")
+            n = int(r16.pred_dur.sum()) * SAMPLES_PER_FRAME - trim
+            if not (len(r16.wav) == len(r32.wav) == n and np.isfinite(r16.wav).all()):
+                raise RuntimeError(f"[{tag}] request {i}: {len(r16.wav)} / {len(r32.wav)} samples, "
+                                   f"not {n}, or non-finite")
+            rows.append({"audio": n / 24000.0, "lat": lat, "raw": mcd(r16.wav, r32.wav, use_dtw=False)})
+        with torch.no_grad():  # the harness's decoding of random-init weights
+            dec16.generator.conv_post.weight_g.mul_(0.01 if syn16.hifigan else 0.1)
+        hold_rounded()
+        for i, ((text, seed), row) in enumerate(zip(REQUESTS, rows)):
+            run = (lambda f, *a, **k: _sines_off(f, *a, **k)) if syn16.hifigan else (
+                lambda f, *a, **k: f(*a, **k))
+            row["held"] = mcd(*(run(syn.synthesize, text, seed=seed, speed=speed, **kw).wav
+                                for syn in (syn16, syn32)), use_dtw=False)
+            lat, audio = row["lat"], row["audio"]
+            print(f"[{tag}] request {i}: {audio:.3f} s audio, durations equal to the f32 "
+                  f"synthesizer's; bf16-vs-f32 compute MCD {row['raw']:.4f} dB at the random-init "
+                  f"head, {row['held']:.4f} dB as the harness decodes (bound {MCD_BOUND}); warm "
+                  f"latency bf16 {', '.join(f'{t:.1f}' for t in lat['bf16'])} ms (RTF "
+                  f"{audio / np.mean(lat['bf16']) * 1e3:.2f}x), f32 "
+                  f"{', '.join(f'{t:.1f}' for t in lat['f32'])} ms (RTF "
+                  f"{audio / np.mean(lat['f32']) * 1e3:.2f}x) [{smi}]", flush=True)
+        if max(row["held"] for row in rows) > MCD_BOUND:
+            raise RuntimeError(f"[{tag}] bf16-vs-f32 compute MCD {[r['held'] for r in rows]} dB")
+        del syn16, syn32, dec16, dec32
+        torch.cuda.empty_cache()
+    sv, _ = serve_burst(op, serve, build_dir, smi, "15 bf16 serving", speed,  # LibriTTS's
+                        ("--decoder-dtype", "bfloat16"), "bfloat16")
+    return launches + sv.launches
+
+
+def _stage1_run(op, cfg, smi, tag, **kwargs):
+    """`run_stage("first", cfg, device="cuda", **kwargs)` with every step
+    timed and checked: finite metrics, 48 K1 and 48 K2 launches, each with
+    an x of the config's precision; 0 plain-version calls; f32 masters and
+    Adam moments. Returns (the steps, the peak memory, K1 and K2
+    launches)."""
+    from styletts2_tpu_torch.train import run as train_run
+    from styletts2_tpu_torch.train.stage1 import Stage1Trainer
+
+    step_dtype = "bfloat16" if cfg.mixed_precision == "bf16" else "float32"
+    steps, train_step, tally = [], Stage1Trainer.train_step, _Tally(op)
+
+    def timed_step(self, batch, epoch, iters, rng):
+        k1, k2, by = op.adain_snake.launches, op.adain_snake.bwd_launches, dict(tally.n)
+        t0 = time.perf_counter()
+        m = train_step(self, batch, epoch, iters, rng)  # ends in a host sync (the metrics)
+        steps.append({"epoch": epoch, "ms": (time.perf_counter() - t0) * 1e3, "metrics": m,
+                      "k1": op.adain_snake.launches - k1, "k2": op.adain_snake.bwd_launches - k2,
+                      "dtypes": {dt for _, dt in tally.since(by)}})
+        return m
+
+    Stage1Trainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    op.adain_snake.launches = op.adain_snake.bwd_launches = 0
+    try:
+        with tally:
+            state = train_run.run_stage("first", cfg, device="cuda", **kwargs)
+        _f32_masters(state, tag)
+        del state
+    finally:
+        Stage1Trainer.train_step = train_step
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    for i, st in enumerate(steps):
+        m = st["metrics"]
+        print(f"[{tag}] step {i} (epoch {st['epoch']}): {st['ms']:.1f} ms; launches K1 {st['k1']} "
+              f"K2 {st['k2']} with x in {sorted(st['dtypes'])}; "
+              + " ".join(f"{k}={v:.4f}" for k, v in (m or {}).items()) + f" [{smi}]", flush=True)
+        if m is None or not all(np.isfinite(v) for v in m.values()):
+            raise RuntimeError(f"{tag} step {i}: metrics {m}")
+        if (st["k1"], st["k2"]) != (CALLS_PER_STEP, CALLS_PER_STEP) or st["dtypes"] != {step_dtype}:
+            raise RuntimeError(f"{tag} step {i}: K1 {st['k1']} K2 {st['k2']} in {st['dtypes']}")
+    if tally.plain or not steps:
+        raise RuntimeError(f"{tag}: {len(steps)} steps, {tally.plain} plain-version calls")
+    return steps, peak, op.adain_snake.launches, op.adain_snake.bwd_launches
+
+
+def _tracks(want, got, tag):
+    """Raise unless every loss of the bf16 step `got` is within STEP_TOL of
+    the f32 step's `want` (relative, floored at 1e-3); print them."""
+    rel = {k: abs(got[k] - v) / max(abs(v), 1e-3) for k, v in want.items() if k != "step_sec"}
+    print(f"[{tag}] first step, bf16 vs f32 from the same weights and draws: rel err "
+          + ", ".join(f"{k} {e:.2e}" for k, e in rel.items()) + f" (tol {STEP_TOL})", flush=True)
+    if max(rel.values()) > STEP_TOL:
+        raise RuntimeError(f"{tag}: the bf16 step's losses stray from f32's: {rel}")
+
+
+def bf16_training_phase(op, build_dir, smi, f32_stage1, f32_stage2):
+    """Phase 16: `mixed_precision: "bf16"` training of Config() at full
+    width, batch 16, max_len 400, on phase 10's fixture, through
+    `run_stage`. Stage 1 from TMA on: one f32 step, then two bf16 steps
+    from the same weights, batches and draws; stage 2 from the bf16 first
+    stage: one f32 step, then two bf16 steps of each phase (before
+    diffusion, with it, joint; `wd` every 2 steps). Every step as phases
+    10 and 12 check it, its launches all with a bf16 x; each stage's first
+    bf16 step within STEP_TOL of the f32 one; f32 masters and moments; step
+    times and peak memory beside phases 10 and 12's f32 ones. Returns the K1
+    and K2 launches."""
+    from styletts2_tpu_torch.config import Config
+
+    with tempfile.TemporaryDirectory(dir=build_dir) as tdir:
+        data = training_fixture(Path(tdir) / "data")
+
+        def config(name, mixed):
+            cfg = Config()
+            cfg.data_params, cfg.log_dir, cfg.log_interval = data, str(Path(tdir) / name), 1
+            cfg.mixed_precision, cfg.epochs_1st, cfg.loss_params.TMA_epoch = mixed, 1, 0
+            cfg.epochs_2nd, cfg.slmadv_params.iter = 3, 2
+            cfg.loss_params.diff_epoch, cfg.loss_params.joint_epoch = 1, 2
+            return cfg
+
+        def config2(name, mixed):  # stage 2 from the bf16 first stage
+            cfg = config(name, mixed)
+            cfg.first_stage_path = str(Path(tdir) / "first_bf16" / "first_stage.pth")
+            return cfg
+
+        ref, _, k1, k2 = _stage1_run(op, config("first_f32", ""), smi, "16 stage 1 f32",
+                                     max_steps=1)
+        steps, peak, a1, a2 = _stage1_run(op, config("first_bf16", "bf16"), smi, "16 stage 1 bf16",
+                                          max_steps=2)
+        launches = [k1 + a1, k2 + a2]
+        _tracks(ref[0]["metrics"], steps[0]["metrics"], "16 stage 1")
+        bf16_ms = ", ".join(f"{st['ms']:.1f}" for st in steps)
+        print(f"[16 stage 1] bf16 TMA steps {bf16_ms} ms, peak "
+              f"{peak / 2 ** 30:.2f} GiB; f32 (phase 10) "
+              f"{', '.join(f'{t:.1f}' for t in f32_stage1['tma'])} ms, {f32_stage1['peak'] / 2 ** 30:.2f}"
+              f" GiB [{smi}]", flush=True)
+
+        ref, *_, k1, k2, _ = _stage2_run(op, "second", config2("second_f32", ""), smi,
+                                         "16 stage 2 f32", max_steps=1)
+        cfg = config2("second_bf16", "bf16")
+        steps, _, peak, a1, a2, log = _stage2_run(op, "second", cfg, smi, "16 stage 2 bf16")
+        launches = [launches[0] + k1 + a1, launches[1] + k2 + a2]
+        if [st["epoch"] for st in steps] != [0, 0, 1, 1, 2, 2] or "loaded first stage" not in log:
+            raise RuntimeError(f"16 stage 2: epochs {[st['epoch'] for st in steps]}")
+        _tracks(ref[0]["metrics"], steps[0]["metrics"], "16 stage 2")
+        ms16 = _phase_ms(cfg, steps)
+        print("[16 stage 2] bf16 steps " + "; ".join(
+            f"{ph} {', '.join(f'{t:.1f}' for t in ms)} ms (f32, phase 12: "
+            f"{', '.join(f'{t:.1f}' for t in f32_stage2['ms'][ph])})" for ph, ms in ms16.items())
+              + f"; peak {peak / 2 ** 30:.2f} GiB (f32: {f32_stage2['peak'] / 2 ** 30:.2f}) [{smi}]",
+              flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -936,12 +1300,12 @@ def main():
     from styletts2_tpu_torch.inference import Synthesizer
     from styletts2_tpu_torch.ops import adain_snake as op
     from styletts2_tpu_torch import serve
+    from styletts2_tpu_torch.utils import set_f32_compute
 
     # 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_f32_compute()  # as the entry points do
     dev = torch.device("cuda")
     print(smi)
     print(f"[1 device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, torch "
@@ -1023,71 +1387,9 @@ def main():
           f"speed {ms_speed:.3f} (natural "
           f"{len(natural.wav) / 24000.0:.2f} s); {lt.launches} kernel launches in {lt.decodes} "
           f"decodes, 0 plain-version calls", flush=True)
-    # 7. serving: the CLI's server (`python -m styletts2_tpu_torch.serve`
-    # --config configs/config_libritts.yml --voices DIR, its defaults otherwise:
-    # no PyYAML, seed-0 weights, window 15 ms, max batch 8) with the seeded
-    # voice as a 22.05 kHz WAV, served on a thread instead of the main one
+    # 7. serving: the CLI's server
     build_dir = Path(op.__file__).resolve().parents[1] / "_build"
-    with tempfile.TemporaryDirectory(dir=build_dir) as vdir:
-        pcm = (np.clip(_voice(sr=22050), -1, 1) * 32767).astype(np.int16)
-        with wave.open(str(Path(vdir) / "seeded.wav"), "wb") as f:
-            f.setnchannels(1)
-            f.setsampwidth(2)
-            f.setframerate(22050)
-            f.writeframes(pcm.tobytes())
-        args = serve.parse_args(["--config", str(REPO / "configs" / "config_libritts.yml"),
-                                 "--voices", vdir, "--port", "0"])
-        t0 = time.perf_counter()
-        server = serve.make_server(args)
-    print(f"[7 serving] make_server: {args.device}, voices {sorted(server.voices)}, max batch "
-          f"{args.max_batch}, window {args.window_ms} ms; built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    port = server.start_background(args.host, args.port)
-    try:
-        body = {"voice": "seeded", "speed": ms_speed, "seed": 0}
-
-        def burst():
-            results = [None] * len(SERVE_TEXTS)
-
-            def go(i):
-                results[i] = _post(port, dict(body, text=SERVE_TEXTS[i]))
-
-            threads = [threading.Thread(target=go, args=(i,)) for i in range(len(SERVE_TEXTS))]
-            t0 = time.perf_counter()
-            for th in threads:
-                th.start()
-            for th in threads:
-                th.join(300)
-            return results, time.perf_counter() - t0
-
-        burst()  # warm-up at the batched shapes
-        stats0 = dict(server.batcher.stats)
-        with _Counts(op, server.syn.models["decoder"]) as sv:
-            results, wall = burst()
-        sv.check(CALLS_PER_HIFIGAN_DECODE, "serving")
-        audio = 0.0
-        for i, res in enumerate(results):
-            if res is None or res[0] != 200 or res[1] != "audio/wav":
-                raise RuntimeError(f"serving request {i}: {res and res[:2]}")
-            with wave.open(io.BytesIO(res[2])) as f:
-                frames = f.getnframes()
-                if f.getframerate() != 24000 or frames <= 0 or (frames + 50) % SAMPLES_PER_FRAME:
-                    raise RuntimeError(f"serving request {i}: {frames} frames at {f.getframerate()} Hz")
-            audio += frames / 24000.0
-        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as resp:
-            stats = json.loads(resp.read())["stats"]
-        batches = stats["batches"] - stats0["batches"]
-        fused = stats["batched_requests"] - stats0["batched_requests"]
-        if fused < 2:
-            raise RuntimeError(f"serving: no fused batch ({stats})")
-        print(f"[7 serving] {len(results)} concurrent requests, {audio:.3f} s audio in {wall * 1e3:.1f} "
-              f"ms wall (window {args.window_ms} ms): aggregate RTF {audio / wall:.2f}x; {batches} "
-              f"batches ({fused} requests fused), "
-              f"{sv.decodes} decode calls, {sv.launches} kernel launches "
-              f"({CALLS_PER_HIFIGAN_DECODE} per decode), 0 plain-version calls [{smi}]", flush=True)
-    finally:
-        server.close()
-        del server
+    sv, _ = serve_burst(op, serve, build_dir, smi, "7 serving", ms_speed)
 
     # 8. LibriTTS references: a request and a batch on the card and on the CPU.
     # The random-init Generator drives its tanh head ~200x into saturation, so
@@ -1122,28 +1424,39 @@ def main():
 
     del ms, ms_cpu
     bwd_err, bwd_timings = backward_phase(op, dev, smi)  # 9
-    train_k1, train_k2 = training_phase(op, build_dir, smi)  # 10
+    train_k1, train_k2, f32_stage1 = training_phase(op, build_dir, smi)  # 10
     training_reference_phase(dev)  # 11
-    stage2_k1, stage2_k2 = stage2_phase(op, build_dir, smi)  # 12, 13
+    (stage2_k1, stage2_k2), f32_stage2 = stage2_phase(op, build_dir, smi)  # 12, 13
     stage2_reference_phase(dev)  # 14
+    bf16_k1 = bf16_serving_phase(op, serve, build_dir, smi)  # 15
+    mp_k1, mp_k2 = bf16_training_phase(op, build_dir, smi, f32_stage1, f32_stage2)  # 16
 
-    fwd_shape, bwd_shape = (8, 32, 192000), (16, 128, 24001)  # a server batch's last stage; training
-    fwd, bwd = timings[fwd_shape], bwd_timings[bwd_shape]
+    def row(t, shape, dtype):
+        return {"shape": list(shape), "dtype": dtype, "ms": t["cold"][0], "plain_ms": t["cold"][1],
+                "warm_ms": t["warm"][0], "bound_ms": t["bound"]}
+
+    # f32: a server batch's last stage, and training; bf16: the same shapes
+    fwd_shape, bwd_shape = (8, 32, 192000), (16, 128, 24001)
+    fwd, bwd = timings[fwd_shape, "float32"], bwd_timings[bwd_shape, "float32"]
     print(json.dumps({"kernels": [{
         "name": "adain_snake", "route": "cuda",
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:38",
-        "launches": lj.launches + lt.launches + sv.launches + train_k1 + stage2_k1,
-        "max_abs_err": max_err,
+        "launches": lj.launches + lt.launches + sv.launches + train_k1 + stage2_k1 + bf16_k1 + mp_k1,
+        "max_abs_err": max_err["float32"],
         "ms": fwd["cold"][0], "plain_ms": fwd["cold"][1], "bound_ms": fwd["bound"],
         "bound_by": "bytes", "library_ms": None, "shape": list(fwd_shape),
+        "bf16": dict(row(timings[fwd_shape, "bfloat16"], fwd_shape, "bfloat16"),
+                     max_abs_err=max_err["bfloat16"]),
     }, {
         "name": "adain_snake_bwd", "route": "cuda",
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:117",
-        "launches": train_k2 + stage2_k2, "max_abs_err": bwd_err, "ms": bwd["cold"][0],
-        "plain_ms": bwd["cold"][1], "bound_ms": bwd["bound"], "bound_by": "bytes",
-        "library_ms": None, "shape": list(bwd_shape),
+        "launches": train_k2 + stage2_k2 + mp_k2, "max_abs_err": bwd_err["float32"],
+        "ms": bwd["cold"][0], "plain_ms": bwd["cold"][1], "bound_ms": bwd["bound"],
+        "bound_by": "bytes", "library_ms": None, "shape": list(bwd_shape),
+        "bf16": dict(row(bwd_timings[bwd_shape, "bfloat16"], bwd_shape, "bfloat16"),
+                     max_abs_err=bwd_err["bfloat16"]),
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -192,6 +192,9 @@ class Config:
     pretrained_model: str = ""
     second_stage_load_pretrained: bool = True
     load_only_params: bool = False
+    # "" (f32) or "bf16": the modules of train/mp.py's BF16_MODULES compute
+    # in bf16 over f32 master weights and optimizer state in training steps
+    mixed_precision: str = ""
     F0_path: str = "Utils/JDC/bst.t7"
     ASR_path: str = "Utils/ASR/epoch_00080.pth"
     PLBERT_dir: str = "Utils/PLBERT/"

@@ -14,6 +14,13 @@ buckets stay because they change the numbers (masked padding, the decoded
 length); everything runs eagerly under `torch.inference_mode()`. The stages
 are `torch.profiler.record_function` spans (text, style, duration, prosody,
 decode) for the profiler; without one they cost ~1 us.
+
+With `decoder_dtype="bfloat16"` the decode stage alone runs in bf16 (its
+weights cast once, its text features and style cast per call) and hands
+back an f32 waveform; the decoder keeps its f32 islands (the sine source's
+phase, the normalisation statistics, the weight norm, the iSTFT head). The
+text, style, duration and prosody stages stay f32, so the durations are
+those of the f32 path.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from styletts2_tpu_torch.utils import duration_to_alignment
 SAMPLES_PER_FRAME = 600  # 2 mel frames per aligned frame x 300 samples per mel frame
 TEXT_BUCKET = 64
 FRAME_BUCKET = 100
-SIGMA_DATA = 0.2  # EDM sigma_data the JAX Synthesizer samples with
+DECODER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _bucket(n: int, step: int, minimum: int) -> int:
@@ -66,12 +73,20 @@ class Synthesizer:
     `state_dict` is the port's layout (`convert.state_dict_from_jax`); without
     it the weights are random, drawn from `seed`. The modules run on the card
     unless the caller asks for the CPU (`device="cpu"`); a CUDA device that
-    is not there is an error, never a fall-back to the CPU."""
+    is not there is an error, never a fall-back to the CPU. `sigma_data` is
+    the EDM data scale the style sampler denoises with (a stage-2
+    checkpoint's estimate); `decoder_dtype` is "float32" (None) or
+    "bfloat16" (see the module's docstring)."""
 
-    def __init__(self, cfg: Config, state_dict=None, seed: int = 0, device="cuda"):
+    def __init__(self, cfg: Config, state_dict=None, seed: int = 0, device="cuda",
+                 sigma_data: float = 0.2, decoder_dtype: Optional[str] = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Synthesizer: device {device}: no CUDA device is available")
+        if (decoder_dtype or "float32") not in DECODER_DTYPES:
+            raise ValueError(f"decoder_dtype {decoder_dtype!r}: one of {sorted(DECODER_DTYPES)}")
+        self.sigma_data = float(sigma_data)
+        self.decoder_dtype = DECODER_DTYPES[decoder_dtype or "float32"]
         mp = cfg.model_params
         self.style_dim = mp.style_dim
         self.multispeaker = mp.multispeaker
@@ -80,6 +95,7 @@ class Synthesizer:
         if state_dict is not None:
             models.load_state_dict(state_dict)
         self.models = models.requires_grad_(False).eval().to(self.device)
+        self.models["decoder"].to(self.decoder_dtype)
 
     @torch.inference_mode()
     def compute_style(self, wave: np.ndarray) -> np.ndarray:
@@ -219,7 +235,7 @@ class Synthesizer:
                                   embedding_lengths=lengths, features=feats)
 
         with record_function("style"):
-            s_pred = sample_adpm2(make_denoise_fn(net, SIGMA_DATA), noise,
+            s_pred = sample_adpm2(make_denoise_fn(net, self.sigma_data), noise,
                                   diffusion_steps, generator=gen)[:, 0, :]
             if s_prev is not None:  # long-form carry-over
                 prev = _f32(s_prev, -1, 2 * sd).to(dev)
@@ -250,5 +266,6 @@ class Synthesizer:
                 asr = torch.cat([asr[..., :1], asr[..., :-1]], dim=-1)
             F0, N = m["predictor"].F0Ntrain(en, s)
         with record_function("decode"):
-            wavs = m["decoder"](asr, F0, N, ref, generator=gen).cpu().numpy()
+            dd = self.decoder_dtype
+            wavs = m["decoder"](asr.to(dd), F0, N, ref.to(dd), generator=gen).float().cpu().numpy()
         return _Batch(wavs, torch.cat([ref, s], dim=-1).cpu().numpy(), pred_dur)

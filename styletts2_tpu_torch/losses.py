@@ -114,9 +114,9 @@ def s2s_ce_loss(s2s_pred, tokens, input_lengths) -> torch.Tensor:
 
 
 def stack_wavlm_states(states: Sequence[torch.Tensor]) -> torch.Tensor:
-    """The hidden states (B, T, H) each -> (B, T, len(states) * H), the WavLM
-    discriminator's input."""
-    return torch.cat(list(states), dim=-1)
+    """The hidden states (B, T, H) each -> (B, T, len(states) * H) f32, the
+    WavLM discriminator's input (its head stays f32 under bf16 training)."""
+    return torch.cat([s.float() for s in states], dim=-1)
 
 
 def duration_ce_loss(dur_logits, durations, lengths) -> torch.Tensor:

@@ -6,7 +6,8 @@ pre-activation per stage (`generator.alphas.{i}`), four transposed-conv
 upsamplings (rates 10, 5, 3, 2 for LibriTTS; padding u//2 + u%2,
 output_padding u%2), the raw one-channel harmonic source injected at every
 stage through a strided conv, and a final snake, conv_post (C -> 1, k = 7)
-and tanh in f32. NCW activations. Every `AdaINResBlock1` (one `noise_res`
+and tanh in f32 (under bf16 too: its weights upcast). NCW activations in
+asr's dtype, the source joining it. Every `AdaINResBlock1` (one `noise_res`
 and three `resblocks` per stage) runs the fused `adain_snake` kernel twice
 per dilation: 16 blocks x 3 dilations x 2 = 96 launches per decode.
 """
@@ -17,6 +18,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from styletts2_tpu_torch.models.decoder_istft import (
@@ -70,6 +72,7 @@ class Generator(nn.Module):
         # read as channels-last, and cuDNN would then return the noise convs'
         # outputs channels-last, which the fused kernel does not take
         har_source = self.m_source(f0, generator)[0].reshape(f0.shape[0], 1, -1).detach()
+        har_source = har_source.to(x.dtype)
         for i, up in enumerate(self.ups):
             x = snake(x, self.alphas[i])
             xs_src = self.noise_res[i](self.noise_convs[i](har_source), s)
@@ -79,9 +82,10 @@ class Generator(nn.Module):
                 y = self.resblocks[i * self.num_kernels + j](x, s)
                 acc = y if acc is None else acc + y
             x = acc / self.num_kernels
-        x = snake(x, self.alphas[-1])
-        x = x.to(torch.promote_types(x.dtype, torch.float32))  # an f32 head under bf16
-        return torch.tanh(self.conv_post(x))[:, 0]
+        x = snake(x, self.alphas[-1]).float()
+        post = self.conv_post
+        y = F.conv1d(x, post.weight.float(), post.bias.float(), padding=post.padding)
+        return torch.tanh(y)[:, 0]
 
 
 class Decoder(DecoderHead):

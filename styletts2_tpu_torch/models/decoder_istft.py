@@ -1,13 +1,18 @@
 """iSTFTNet decoder with the harmonic-plus-noise NSF source
 (`styletts2_tpu/models/decoder_istft.py`).
 
-NCW activations, f32. Every `AdaINResBlock1` runs its instance norm, style
-affine and snake through the fused `adain_snake` kernel: two calls per
-dilation, so a Generator with 8 such blocks of 3 dilations launches it 48
-times forward, and its backward kernel as often in training. The NSF source
-(no gradient, as in the JAX package) draws its initial phase and its
-additive noise, and the train-mode F0/N box smoothing its kernel widths,
-from the `torch.Generator` the caller passes.
+NCW activations in the dtype of the text features `asr` and the weights:
+f32, or bf16 for the bf16 decoder and bf16 training. Every `AdaINResBlock1`
+runs its instance norm, style affine and snake through the fused
+`adain_snake` kernel: two calls per dilation, so a Generator with 8 such
+blocks of 3 dilations launches it 48 times forward, and its backward kernel
+as often in training. The NSF source (no gradient, as in the JAX package)
+draws its initial phase and its additive noise, and the train-mode F0/N box
+smoothing its kernel widths, from the `torch.Generator` the caller passes.
+Under bf16 these stay f32 (`styletts2_tpu/models/decoder_istft.py`): the
+pitch the source reads, its sines (their phase reaches thousands of
+radians) and merge, the source's STFT, and the head: conv_post, exp / sin
+and the iSTFT; the waveform comes back f32.
 """
 
 from __future__ import annotations
@@ -55,7 +60,9 @@ class SineGen(nn.Module):
         self.voiced_threshold = voiced_threshold
 
     def forward(self, f0: torch.Tensor, generator: Optional[torch.Generator] = None):
-        """f0 (B, L, 1) at sample rate -> (sine_waves (B, L, dim), uv (B, L, 1))."""
+        """f0 (B, L, 1) at sample rate -> (sine_waves (B, L, dim), uv (B, L, 1)),
+        f32 whatever f0's dtype."""
+        f0 = f0.float()
         B, L, _ = f0.shape
         harmonics = torch.arange(1, self.dim + 1, device=f0.device, dtype=torch.float32)
         rad = torch.remainder(f0 * harmonics / self.samp_rate, 1.0)
@@ -73,7 +80,8 @@ class SineGen(nn.Module):
 
 
 class SourceModuleHnNSF(nn.Module):
-    """Merge the harmonics into one excitation: tanh(Linear(sines))."""
+    """Merge the harmonics into one excitation: tanh(Linear(sines)), in f32
+    (bf16 weights upcast)."""
 
     def __init__(self, upsample_scale: int = 300, harmonic_num: int = 8):
         super().__init__()
@@ -82,7 +90,8 @@ class SourceModuleHnNSF(nn.Module):
 
     def forward(self, f0, generator=None):
         sine_wavs, uv = self.l_sin_gen(f0, generator)
-        return torch.tanh(self.l_linear(sine_wavs)), uv
+        lin = self.l_linear
+        return torch.tanh(F.linear(sine_wavs, lin.weight.float(), lin.bias.float())), uv
 
 
 class AdaINResBlock1(nn.Module):
@@ -150,7 +159,8 @@ class Generator(nn.Module):
         """x (B, C0, T_mel), s (B, style), f0_curve (B, T_mel) -> wav (B, T_mel * 300)."""
         f0 = upsample_nearest(f0_curve, self.total_up)[..., None]
         har_source = self.m_source(f0, generator)[0][..., 0].detach()
-        har = torch.cat(stft_magphase(har_source, self.n_fft, self.hop, self.n_fft), dim=1)
+        har = torch.cat(stft_magphase(har_source, self.n_fft, self.hop, self.n_fft),
+                        dim=1).to(x.dtype)
         n_up = len(self.ups)
         for i in range(n_up):
             x = leaky_relu(x, 0.1)
@@ -164,7 +174,12 @@ class Generator(nn.Module):
                 y = self.resblocks[i * self.num_kernels + j](x, s)
                 acc = y if acc is None else acc + y
             x = acc / self.num_kernels
-        x = self.conv_post(leaky_relu(x))
+        # the head in f32, conv_post included (its weights upcast): its phase
+        # channels reach |x| ~ 10-20, where a bf16 output would round the
+        # phase to 0.06-0.125 rad
+        post = self.conv_post
+        x = F.conv1d(leaky_relu(x).float(), post.weight.float(), post.bias.float(),
+                     padding=post.padding)
         n_half = self.n_fft // 2 + 1
         return istft(torch.exp(x[:, :n_half]), torch.sin(x[:, n_half:]),
                      self.n_fft, self.hop, self.n_fft)
@@ -194,7 +209,9 @@ class DecoderHead(nn.Module):
     asr (B, dim_in, T_en) text features; F0_curve, N (B, 2*T_en); s (B,
     style_dim) -> the generator's waveform. In train mode the F0 and N
     curves are first box-smoothed, each with a width drawn uniformly from
-    F0_SMOOTH_WIDTHS / N_SMOOTH_WIDTHS (`decoder_istft.py:276-296`)."""
+    F0_SMOOTH_WIDTHS / N_SMOOTH_WIDTHS (`decoder_istft.py:276-296`). The
+    curves' convolutions run in asr's dtype; the generator's source reads
+    the F0 curve in f32."""
 
     def __init__(self, dim_in: int, style_dim: int, upsample_initial_channel: int,
                  bottleneck: int = 1024):
@@ -215,13 +232,13 @@ class DecoderHead(nn.Module):
         if self.training:
             f0_curve = random_box_smooth(f0_curve, F0_SMOOTH_WIDTHS, generator)
             n_curve = random_box_smooth(n_curve, N_SMOOTH_WIDTHS, generator)
-        F0 = self.F0_conv(f0_curve[:, None])
-        N = self.N_conv(n_curve[:, None])
+        F0 = self.F0_conv(f0_curve.to(asr.dtype)[:, None])
+        N = self.N_conv(n_curve.to(asr.dtype)[:, None])
         x = self.encode(torch.cat([asr, F0, N], dim=1), s)
         asr_res = self.asr_res(asr)
         for blk in self.decode:
             x = blk(torch.cat([x, asr_res, F0, N], dim=1), s)
-        return self.generator(x, s, f0_curve, generator)
+        return self.generator(x, s, f0_curve.float(), generator)
 
 
 class Decoder(DecoderHead):

@@ -10,6 +10,8 @@ logits, generated logits, real feature maps, generated feature maps), the
 tuple the losses take. `WavLMDiscriminator` scores stacked WavLM hidden
 states frame by frame. Module names are the reference checkpoint's
 (`styletts2_tpu/convert.py:convert_mpd`, `convert_msd`, `convert_wd`).
+Under bf16 training the convolutions compute in their weights' dtype and
+the MRSD's STFT in f32 (`torch.fft` takes no bf16).
 """
 
 from __future__ import annotations
@@ -21,13 +23,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from styletts2_tpu_torch.models.layers import WNConv1d, uniform_
+from styletts2_tpu_torch.models.layers import WNConv1d, uniform_, weight_norm
 from styletts2_tpu_torch.ops.stft import stft
 
 
 class WNConv2d(nn.Module):
     """Weight-normalised Conv2d: weight_v (out, in, kh, kw), weight_g
-    (out, 1, 1, 1), with 1e-12 inside the norm's square root."""
+    (out, 1, 1, 1) (`layers.weight_norm`)."""
 
     def __init__(self, cin, cout, kernel_size: Tuple[int, int], stride=(1, 1), padding=(0, 0)):
         super().__init__()
@@ -37,9 +39,8 @@ class WNConv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x):
-        v = self.weight_v
-        w = v / torch.sqrt(torch.sum(v * v, dim=(1, 2, 3), keepdim=True) + 1e-12) * self.weight_g
-        return F.conv2d(x, w, self.bias, self.stride, self.padding)
+        w = weight_norm(self.weight_v, self.weight_g)
+        return F.conv2d(x.to(w.dtype), w, self.bias, self.stride, self.padding)
 
 
 class DiscriminatorP(nn.Module):
@@ -82,7 +83,7 @@ class SpecDiscriminator(nn.Module):
         self.out = WNConv2d(32, 1, (3, 3), (1, 1), (1, 1))
 
     def forward(self, wav):
-        mag = stft(wav, self.fft_size, self.shift_size, self.win_length).abs()
+        mag = stft(wav.float(), self.fft_size, self.shift_size, self.win_length).abs()
         x = mag.transpose(-1, -2)[:, None]  # (B, 1, frames, freq)
         fmap = []
         for conv in self.discriminators:

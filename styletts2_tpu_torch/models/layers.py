@@ -5,6 +5,11 @@ Counterparts of `styletts2_tpu/models/layers.py`. Parameter names follow the
 reference torch checkpoints that `styletts2_tpu/convert.py` reads (weight_v,
 weight_g, bias; LSTM weight_ih_l0...), so `convert.state_dict_from_jax` is a
 rename-and-transpose.
+
+Under bf16 (the bf16 decoder, bf16 training) a convolution computes in its
+weight's dtype, its input cast to it, as the JAX package's raw convs do;
+weight norm, spectral norm and the normalisation statistics stay f32
+islands.
 """
 
 from __future__ import annotations
@@ -46,10 +51,16 @@ def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return x + (s * s) / alpha
 
 
-def _weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def weight_norm(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """g * v / ||v|| with the norm over every axis but the first, and 1e-12
-    inside the square root as in the JAX package (not torch's weight_norm)."""
-    return v / torch.sqrt(torch.sum(v * v, dim=(1, 2), keepdim=True) + 1e-12) * g
+    inside the square root as in the JAX package (not torch's weight_norm).
+    Computed in f32 from v and g as they are (bf16-rounded under bf16: a
+    bf16 sum over a kernel's elements loses ~1% per layer), returned in v's
+    dtype."""
+    v32 = v.float()
+    dims = tuple(range(1, v.dim()))
+    return (v32 / torch.sqrt(torch.sum(v32 * v32, dim=dims, keepdim=True) + 1e-12)
+            * g.float()).to(v.dtype)
 
 
 class WNConv1d(nn.Module):
@@ -63,9 +74,14 @@ class WNConv1d(nn.Module):
         self.weight_g = nn.Parameter(torch.ones(out_ch, 1, 1))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
+    @property
+    def weight(self) -> torch.Tensor:
+        return weight_norm(self.weight_v, self.weight_g)
+
     def forward(self, x):
-        w = _weight_norm(self.weight_v, self.weight_g)
-        return F.conv1d(x, w, self.bias, self.stride, self.padding, self.dilation, self.groups)
+        w = self.weight
+        return F.conv1d(x.to(w.dtype), w, self.bias, self.stride, self.padding, self.dilation,
+                        self.groups)
 
 
 class WNConvTranspose1d(nn.Module):
@@ -82,9 +98,9 @@ class WNConvTranspose1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_ch)) if bias else None
 
     def forward(self, x):
-        w = _weight_norm(self.weight_v, self.weight_g)
+        w = weight_norm(self.weight_v, self.weight_g)
         return F.conv_transpose1d(
-            x, w, self.bias, self.stride, self.padding, self.output_padding, self.groups
+            x.to(w.dtype), w, self.bias, self.stride, self.padding, self.output_padding, self.groups
         )
 
 
@@ -101,7 +117,9 @@ class SNConv2d(nn.Module):
     - True: one power iteration in f32 (norms + 1e-12) whose result is used
       now but stored only by `commit_spectral_updates`, so that the step's
       other passes see the vectors the step began with (the JAX package's
-      `update_stats=True` passes, folded in after the optimizer step)."""
+      `update_stats=True` passes, folded in after the optimizer step).
+    The iteration and sigma are f32 whatever the weight's dtype, and (u, v)
+    stay f32 buffers; the convolution runs in the weight's dtype."""
 
     def __init__(self, in_ch, out_ch, kernel_size, stride=1, padding=0, groups=1, bias=True):
         super().__init__()
@@ -125,8 +143,8 @@ class SNConv2d(nn.Module):
                 u = u / (torch.linalg.vector_norm(u) + 1e-12)
                 self.pending = (u, v)
         sigma = u @ (w_mat @ v)
-        return F.conv2d(x, w / sigma.to(w.dtype), self.bias, self.stride, self.padding, 1,
-                        self.groups)
+        return F.conv2d(x.to(w.dtype), w / sigma.to(w.dtype), self.bias, self.stride,
+                        self.padding, 1, self.groups)
 
 
 @torch.no_grad()

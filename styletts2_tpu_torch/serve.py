@@ -21,7 +21,7 @@ Endpoints:
 Run (on a CUDA card; --device cpu for a machine without one):
     python -m styletts2_tpu_torch.serve --config configs/config_libritts.yml \\
         [--ckpt net.pt] [--voices refdir/] [--port 8760] [--max-batch 8] \\
-        [--window-ms 15] [--device cuda]
+        [--window-ms 15] [--device cuda] [--decoder-dtype bfloat16]
 """
 
 from __future__ import annotations
@@ -267,27 +267,40 @@ class TTSServer:
         self.batcher.close()
 
 
-def load_synthesizer(config: Optional[str], ckpt: Optional[str] = None, device: str = "cuda"):
+def load_synthesizer(config: Optional[str], ckpt: Optional[str] = None, device: str = "cuda",
+                     decoder_dtype: Optional[str] = None):
     """The Synthesizer of a YAML config (`Config()` without one) on `device`.
     The repository's two configs are built without PyYAML
     (`config.config_from_path`). `ckpt` is a torch file {"net": {module:
     state_dict}} in the port's layout (the weights of
-    `convert.state_dict_from_jax`), loaded strictly; without it the weights
-    are random, drawn from seed 0. A CUDA device that is not there is an
-    error, never a fall-back to the CPU."""
+    `convert.state_dict_from_jax`), such as a checkpoint of the port's
+    trainers: each module synthesis runs (`build.module_keys`) is loaded
+    strictly, the training-only ones (aligner, pitch extractor,
+    discriminators) are skipped, and a module the file lacks is an error.
+    The sampler's sigma_data is the file's `sigma_data` (stage 2's
+    estimate), else the config's. Without `ckpt` the weights are random,
+    drawn from seed 0. A CUDA device that is not there is an error, never a
+    fall-back to the CPU. `decoder_dtype`: see `Synthesizer`."""
     import torch
 
     from styletts2_tpu_torch.config import Config, config_from_path
     from styletts2_tpu_torch.inference import Synthesizer
+    from styletts2_tpu_torch.models.build import module_keys
 
     cfg = config_from_path(config) if config else Config()
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {device}: no CUDA device is available")
-    state_dict = None
+    state_dict, sigma_data = None, cfg.model_params.diffusion.dist.sigma_data
     if ckpt:
-        net = torch.load(ckpt, map_location="cpu", weights_only=True)["net"]
-        state_dict = {f"{mod}.{k}": v for mod, sd in net.items() for k, v in sd.items()}
-    return Synthesizer(cfg, state_dict=state_dict, device=device)
+        payload = torch.load(ckpt, map_location="cpu", weights_only=True)
+        net = payload["net"]
+        missing = [k for k in module_keys(cfg) if k not in net]
+        if missing:
+            raise RuntimeError(f"{ckpt} has no weights for {missing}")
+        state_dict = {f"{mod}.{k}": v for mod in module_keys(cfg) for k, v in net[mod].items()}
+        sigma_data = float(payload.get("sigma_data", sigma_data))
+    return Synthesizer(cfg, state_dict=state_dict, device=device, sigma_data=sigma_data,
+                       decoder_dtype=decoder_dtype)
 
 
 def parse_args(argv=None):
@@ -303,12 +316,18 @@ def parse_args(argv=None):
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--window-ms", type=float, default=15.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--decoder-dtype", default=None, choices=["bfloat16"],
+                    help="run the decoder in bf16 (its f32 islands kept)")
     return ap.parse_args(argv)
 
 
 def make_server(args) -> TTSServer:
-    """The TTSServer that `main` runs for parsed arguments, not yet serving."""
-    syn = load_synthesizer(args.config, args.ckpt, args.device)
+    """The TTSServer that `main` runs for parsed arguments, not yet serving.
+    Convolutions and matmuls run in f32 (`utils.set_f32_compute`)."""
+    from styletts2_tpu_torch.utils import set_f32_compute
+
+    set_f32_compute()
+    syn = load_synthesizer(args.config, args.ckpt, args.device, args.decoder_dtype)
     voices = TTSServer.load_voices(syn, args.voices) if args.voices else None
     return TTSServer(syn, voices, args.max_batch, args.window_ms)
 
@@ -317,7 +336,8 @@ def main(argv=None):
     args = parse_args(argv)
     server = make_server(args)
     print(f"serving on http://{args.host}:{args.port} (max_batch={args.max_batch}, "
-          f"window={args.window_ms} ms, device={args.device})", flush=True)
+          f"window={args.window_ms} ms, device={args.device}, decoder "
+          f"{args.decoder_dtype or 'float32'})", flush=True)
     server.serve(args.host, args.port)
 
 

@@ -13,6 +13,9 @@ names are the reference's), resumes from the stage's newest epoch file in
 asked, then runs the epoch loop: train steps (a metrics line every
 `log_interval`), the validation losses, an asynchronous checkpoint every
 `save_freq` epochs and, at the end, `first_stage.pth` or `{stage}_final.pth`.
+`mixed_precision: bf16` in the config runs every stage's steps in bf16
+(`train/mp.py`); checkpoints stay f32 either way. The command line runs
+convolutions and matmuls in f32 (`utils.set_f32_compute`).
 Without an epoch file to resume from, `finetune` takes the weights of
 `pretrained_model` (only those when `load_only_params`), and so does
 `second` when `second_stage_load_pretrained` is set and that file exists;
@@ -52,6 +55,7 @@ from styletts2_tpu_torch.train.stage2 import Stage2Trainer
 from styletts2_tpu_torch.train.state import (AsyncSaver, TrainState, build_optimizers,
                                              find_latest_checkpoint, load_checkpoint,
                                              save_checkpoint)
+from styletts2_tpu_torch.utils import set_f32_compute
 
 CKPT_PREFIX = {"first": "epoch_1st_", "second": "epoch_2nd_", "finetune": "epoch_ft_"}
 TRAINERS = {"first": Stage1Trainer, "second": Stage2Trainer, "finetune": FinetuneTrainer}
@@ -227,6 +231,7 @@ def main(argv=None):
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
+    set_f32_compute()
     run_stage(args.stage, args.config_path, args.max_steps, args.device)
 
 

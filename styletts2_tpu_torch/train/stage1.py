@@ -21,7 +21,9 @@ generator draws the aligner's token mask, the decoder's F0 / N smoothing
 and the NSF source's phase and noise. Dropout draws from torch's global
 generator. A step's parts run under the profiler ranges `forward`,
 `discriminators`, `adversarial`, `backward` and `optimizer`
-(`tools/profile_torch_train.py` reads them).
+(`tools/profile_torch_train.py` reads them). With `mixed_precision: bf16`
+the step's style encoder, decoder, WavLM and discriminators run in bf16
+(`train/mp.py`); validation stays f32, as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from styletts2_tpu_torch.models.layers import commit_spectral_updates
 from styletts2_tpu_torch.models.wavlm import resample_24k_to_16k
 from styletts2_tpu_torch.ops.align import maximum_path
 from styletts2_tpu_torch.ops.stft import log_norm, preprocess_mel
+from styletts2_tpu_torch.train.mp import enabled, run
 from styletts2_tpu_torch.train.state import TrainState, step_modules
 
 HOP = 300
@@ -83,6 +86,7 @@ class Stage1Trainer:
         self.cfg, self.state = cfg, state
         self.models = state.models
         self.device = torch.device(device)
+        self.mp = enabled(cfg)
 
     def _tensors(self, batch: Batch):
         dev = self.device
@@ -93,9 +97,10 @@ class Stage1Trainer:
 
     def forward_recon(self, waves, tokens, input_lengths, mel_lengths, starts, st_starts,
                       clip_len: int, use_mono: bool,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None, mp: bool = False):
         """The shared forward to the reconstruction: (y_rec (B, clip * 600),
-        the target wave clip, aux). Modules run in their current modes."""
+        the target wave clip, aux). Modules run in their current modes; the
+        style encoder and the decoder in bf16 when `mp` (a training step's)."""
         m = self.models
         mels = preprocess_mel(waves)
         mels = mels[..., : (mels.shape[-1] // 2) * 2]
@@ -111,8 +116,8 @@ class Stage1Trainer:
             f0_real = m["pitch_extractor"](gt)[0]
         style_in = (clip_slice(mels, [2 * s for s in st_starts], 2 * clip_len)
                     if self.cfg.model_params.multispeaker else gt)
-        s = m["style_encoder"](style_in, update_stats=m["style_encoder"].training)
-        y_rec = m["decoder"](en, f0_real, real_norm, s, generator)
+        s = run(m, "style_encoder", mp, style_in, update_stats=m["style_encoder"].training)
+        y_rec = run(m, "decoder", mp, en, f0_real, real_norm, s, generator)
         return y_rec, wav_clip, {"s2s_pred": s2s_pred, "s2s_attn": s2s_attn, "mono": mono}
 
     def generator_losses(self, y_rec, wav_clip, aux, tokens, input_lengths, tma: bool):
@@ -124,10 +129,11 @@ class Stage1Trainer:
             return loss_mel, metrics  # unscaled before TMA, as the reference
         loss_s2s = L.s2s_ce_loss(aux["s2s_pred"], tokens, input_lengths)
         loss_mono = (aux["s2s_attn"] - aux["mono"]).abs().mean() * 10.0
-        wavlm = self.models["wavlm"]
+        m = self.models
         with torch.no_grad():
-            real_states = wavlm(resample_24k_to_16k(wav_clip))
-        loss_slm = L.wavlm_feature_loss(real_states, wavlm(resample_24k_to_16k(y_rec)))
+            real_states = run(m, "wavlm", self.mp, resample_24k_to_16k(wav_clip))
+        loss_slm = L.wavlm_feature_loss(real_states,
+                                        run(m, "wavlm", self.mp, resample_24k_to_16k(y_rec)))
         metrics.update(s2s=loss_s2s, mono=loss_mono, slm=loss_slm)
         g_loss = (lp.lambda_mel * loss_mel + lp.lambda_mono * loss_mono
                   + lp.lambda_s2s * loss_s2s + lp.lambda_slm * loss_slm)
@@ -157,7 +163,8 @@ class Stage1Trainer:
         with record_function("forward"):
             waves, tokens, input_lengths, mel_lengths = self._tensors(batch)
             y_rec, wav_clip, aux = self.forward_recon(waves, tokens, input_lengths, mel_lengths,
-                                                      starts, st_starts, clip_len, use_mono, gen)
+                                                      starts, st_starts, clip_len, use_mono, gen,
+                                                      self.mp)
             g_loss, metrics = self.generator_losses(y_rec, wav_clip, aux, tokens, input_lengths,
                                                     tma)
         if tma:
@@ -166,15 +173,16 @@ class Stage1Trainer:
                 for k in D_KEYS:
                     m[k].requires_grad_(True)
                 y_d = y_rec.detach()
-                d_loss = L.discriminator_adv_loss(m["mpd"](wav_clip, y_d), m["msd"](wav_clip, y_d))
+                d_loss = L.discriminator_adv_loss(run(m, "mpd", self.mp, wav_clip, y_d),
+                                                  run(m, "msd", self.mp, wav_clip, y_d))
                 d_loss.backward()
                 step_modules(m, opts, D_KEYS)
                 for k in D_KEYS:
                     m[k].requires_grad_(False)
             # then the adversarial term against the updated discriminators
             with record_function("adversarial"):
-                loss_gen = L.generator_adv_loss(m["mpd"](wav_clip, y_rec),
-                                                m["msd"](wav_clip, y_rec))
+                loss_gen = L.generator_adv_loss(run(m, "mpd", self.mp, wav_clip, y_rec),
+                                                run(m, "msd", self.mp, wav_clip, y_rec))
             g_loss = g_loss + cfg.loss_params.lambda_gen * loss_gen
             metrics.update(d_loss=d_loss, gen=loss_gen)
         with record_function("backward"):

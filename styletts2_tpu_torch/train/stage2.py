@@ -38,6 +38,12 @@ noise, the embedding masks, the sampler's noise and churn, the SLM clip
 starts and the decoder's draws; dropout draws from torch's global
 generator. A step's parts run under the profiler ranges `forward`,
 `discriminators`, `adversarial`, `backward`, `optimizer`, `slm` and `slm_d`.
+
+With `mixed_precision: bf16` the step's style encoders, decoder runs,
+WavLM and discriminators compute in bf16 (`train/mp.py`); the styles that
+enter the predictor, the diffusion and the losses are upcast to f32, the
+acoustic clip style reaches the decoder in bf16, and the WavLM
+discriminator's head stays f32. Validation stays f32, as in the JAX trainer.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from styletts2_tpu_torch.models.diffusion.sampler import (kdiffusion_loss, make_
 from styletts2_tpu_torch.models.layers import commit_spectral_updates
 from styletts2_tpu_torch.models.wavlm import resample_24k_to_16k
 from styletts2_tpu_torch.ops.stft import log_norm, preprocess_mel
+from styletts2_tpu_torch.train.mp import enabled, run
 from styletts2_tpu_torch.train.stage1 import D_KEYS, HOP, aligner_pass, clip_length, clip_slice
 from styletts2_tpu_torch.train.state import TrainState, drop_bias_hh_grads, step_modules
 
@@ -101,6 +108,7 @@ class Stage2Trainer:
         self.models = state.models
         self.device = torch.device(device)
         self.multispeaker = cfg.model_params.multispeaker
+        self.mp = enabled(cfg)
 
     # ------------------------------------------------------------------
     def gen_keys(self, diff_on: bool, joint_on: bool):
@@ -179,7 +187,7 @@ class Stage2Trainer:
         y_rec (B, clip * 600), metrics, aux). Modules run in their current
         modes but the decoder, which runs in train mode for `y_rec` when
         `train` and joint_on (its box smoothing), else in eval mode."""
-        cfg, m = self.cfg, self.models
+        cfg, m, mp = self.cfg, self.models, self.mp
         lp, dist = cfg.loss_params, cfg.model_params.diffusion.dist
         mask_proba = cfg.model_params.diffusion.embedding_mask_proba
         waves, tokens = t["waves"], t["tokens"]
@@ -193,9 +201,11 @@ class Stage2Trainer:
         asr = t_en @ mono  # (B, C, L)
         d_gt = mono.sum(dim=-1)  # (B, T_text)
         # full-utterance styles; their power iterations are stored after the step
-        s_dur_full = m["predictor_encoder"](mels, lengths=mel_lengths, update_stats=True)
+        s_dur_full = run(m, "predictor_encoder", mp, mels, lengths=mel_lengths,
+                         update_stats=True).float()
         with torch.no_grad():
-            gs_full = m["style_encoder"](mels, lengths=mel_lengths, update_stats=True)
+            gs_full = run(m, "style_encoder", mp, mels, lengths=mel_lengths,
+                          update_stats=True).float()
         s_trg = torch.cat([gs_full, s_dur_full.detach()], dim=-1)
         bert_dur, d_en = self._bert(tokens, lengths)
         metrics, feats = {}, None
@@ -204,8 +214,9 @@ class Stage2Trainer:
             if self.multispeaker:
                 with torch.no_grad():
                     ref_mels = preprocess_mel(t["ref_waves"])
-                    feats = torch.cat([m[k](ref_mels, lengths=t["ref_mel_lengths"], update_stats=False)
-                                       for k in ("style_encoder", "predictor_encoder")], dim=-1)
+                    feats = torch.cat([run(m, k, mp, ref_mels, lengths=t["ref_mel_lengths"])
+                                       for k in ("style_encoder", "predictor_encoder")],
+                                      dim=-1).float()
             mask = draw_embedding_mask(len(tokens), mask_proba, generator, tokens.device)
             loss_diff = kdiffusion_loss(
                 lambda x, c: m["diffusion"](x, c, bert_dur, features=feats, embedding_mask=mask),
@@ -221,24 +232,26 @@ class Stage2Trainer:
         wav_clip = clip_slice(waves, [2 * HOP * s for s in starts], clip_len * 2 * HOP)
         style_in = (clip_slice(mels, [2 * s for s in st_starts], 2 * clip_len)
                     if self.multispeaker else gt)
-        s_dur_clip = m["predictor_encoder"](style_in, update_stats=False)
-        s_clip = m["style_encoder"](style_in, update_stats=False)
+        s_dur_clip = run(m, "predictor_encoder", mp, style_in).float()
+        s_clip = run(m, "style_encoder", mp, style_in)  # to the decoder, in its dtype
         dec = m["decoder"].eval()
         with torch.no_grad():
             f0_real = m["pitch_extractor"](gt)[0]
             n_real = log_norm(gt)
-            y_rec_gt_pred = dec(en, f0_real, n_real, s_clip, generator)
+            y_rec_gt_pred = run(m, "decoder", mp, en, f0_real, n_real, s_clip, generator)
         wav_tgt = wav_clip if joint_on else y_rec_gt_pred
         f0_fake, n_fake = m["predictor"].F0Ntrain(p_en, s_dur_clip)
-        y_rec = dec.train(train and joint_on)(en, f0_fake, n_fake, s_clip, generator)
+        dec.train(train and joint_on)
+        y_rec = run(m, "decoder", mp, en, f0_fake, n_fake, s_clip, generator)
         dec.eval()
 
         loss_f0 = L.smooth_l1(f0_real, f0_fake) / 10.0
         loss_norm = L.smooth_l1(n_real, n_fake)
         loss_mel = L.multires_stft_loss(y_rec, wav_tgt)
         with torch.no_grad():
-            real_states = m["wavlm"](resample_24k_to_16k(wav_tgt))
-        loss_slm = L.wavlm_feature_loss(real_states, m["wavlm"](resample_24k_to_16k(y_rec)))
+            real_states = run(m, "wavlm", mp, resample_24k_to_16k(wav_tgt))
+        loss_slm = L.wavlm_feature_loss(real_states,
+                                        run(m, "wavlm", mp, resample_24k_to_16k(y_rec)))
         loss_ce = L.duration_ce_loss(dur_logits, d_gt, lengths)
         loss_dur = L.duration_l1_loss(torch.sigmoid(dur_logits).sum(dim=-1), d_gt, lengths)
         g_loss = (lp.lambda_mel * loss_mel + lp.lambda_F0 * loss_f0 + lp.lambda_ce * loss_ce
@@ -292,8 +305,10 @@ class Stage2Trainer:
         max_start = torch.clamp(torch.clamp(total, max=slm_frames) - slm_clip, min=1)
         starts = (torch.rand((K,), generator=generator, device=dev) * max_start).long().tolist()
         f0, n = m["predictor"].F0Ntrain(clip_slice(p_pred, starts, slm_clip), s_dur)
-        y_pred = m["decoder"].eval()(clip_slice(asr_pred, starts, slm_clip), f0, n, s_ac, generator)
-        d_g = m["wd"](L.stack_wavlm_states(m["wavlm"](resample_24k_to_16k(y_pred))))
+        m["decoder"].eval()
+        y_pred = run(m, "decoder", self.mp, clip_slice(asr_pred, starts, slm_clip), f0, n, s_ac,
+                     generator)
+        d_g = m["wd"](L.stack_wavlm_states(run(m, "wavlm", self.mp, resample_24k_to_16k(y_pred))))
         w = valid.float()[:, None]
         loss = (((1.0 - d_g) ** 2) * w).sum() / torch.clamp(w.sum() * d_g.shape[1], min=1.0)
         return loss, y_pred, valid
@@ -341,7 +356,8 @@ class Stage2Trainer:
 
         def wd_of(x):
             with torch.no_grad():
-                states = L.stack_wavlm_states(m["wavlm"](resample_24k_to_16k(x.detach())))
+                states = L.stack_wavlm_states(run(m, "wavlm", self.mp,
+                                                  resample_24k_to_16k(x.detach())))
             return m["wd"](states)
 
         d_r, d_g = wd_of(real), wd_of(y_pred)
@@ -383,14 +399,16 @@ class Stage2Trainer:
                 for k in D_KEYS:
                     m[k].requires_grad_(True)
                 y_d = y_rec.detach()
-                d_loss = L.discriminator_adv_loss(m["mpd"](wav_tgt, y_d), m["msd"](wav_tgt, y_d))
+                d_loss = L.discriminator_adv_loss(run(m, "mpd", self.mp, wav_tgt, y_d),
+                                                  run(m, "msd", self.mp, wav_tgt, y_d))
                 d_loss.backward()
                 step_modules(m, opts, D_KEYS)
                 for k in D_KEYS:
                     m[k].requires_grad_(False)
             # then the adversarial term against the updated discriminators
             with record_function("adversarial"):
-                loss_gen = L.generator_adv_loss(m["mpd"](wav_tgt, y_rec), m["msd"](wav_tgt, y_rec))
+                loss_gen = L.generator_adv_loss(run(m, "mpd", self.mp, wav_tgt, y_rec),
+                                                run(m, "msd", self.mp, wav_tgt, y_rec))
             g_loss = g_loss + lp.lambda_gen * loss_gen
             metrics.update(d_loss=d_loss, gen=loss_gen, g_loss=g_loss)
         with record_function("backward"):

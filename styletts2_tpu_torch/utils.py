@@ -1,5 +1,6 @@
-"""Alignment expansion from integer durations, and WAV reading and
-resampling for the server's voice table (numpy, `styletts2_tpu/utils.py`)."""
+"""Alignment expansion from integer durations, WAV reading and resampling
+for the server's voice table (numpy, `styletts2_tpu/utils.py`), and the
+entry points' precision setting."""
 
 from __future__ import annotations
 
@@ -9,6 +10,16 @@ from typing import Tuple
 
 import numpy as np
 import torch
+
+
+def set_f32_compute() -> None:
+    """Run convolutions and matmuls in full f32: turn TF32 off in cuDNN and
+    in cuBLAS (torch's default leaves it on for cuDNN). The entry points
+    call it, so that what ships runs at the precision the CPU parity tests
+    and the card's checks hold; bf16 is asked for explicitly (the
+    synthesizer's `decoder_dtype`, the config's `mixed_precision`)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
 
 
 def duration_to_alignment(durations: torch.Tensor, n_frames: int) -> torch.Tensor:

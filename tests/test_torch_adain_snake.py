@@ -106,6 +106,31 @@ def test_wrapper_cpu_contract(rng):
         assert adain_snake(*leaves).grad_fn is None
 
 
+def test_wrapper_cpu_route_keeps_the_dtype_and_computes_in_f32(rng):
+    """A bf16 x through the wrapper on the CPU (its plain route): the output
+    is bf16 and is the f32 (here f64) result rounded once; gamma, beta and
+    alpha may come in bf16 too. The backward gives each gradient in its
+    primal's dtype, from f32 math."""
+    x, gamma, beta, alpha = _inputs(rng, 2, 300, 16, mean=20.0)
+    xb = _ncw(x).bfloat16()
+    gb, bb, ab = (torch.from_numpy(a).bfloat16() for a in (gamma, beta, alpha))
+    xd, gd, bd, ad = (t.double() for t in (xb, gb, bb, ab))
+    xhat = (xd - xd.mean(-1, keepdim=True)) / torch.sqrt(xd.var(-1, unbiased=False, keepdim=True)
+                                                        + 1e-5)
+    z = (1 + gd[:, :, None]) * xhat + bd[:, :, None]
+    want = (z + torch.sin(ad[None, :, None] * z) ** 2 / ad[None, :, None]).bfloat16()
+    got = adain_snake(xb, gb, bb, ab)
+    assert got.dtype == torch.bfloat16
+    # f32 statistics of a row whose mean is 20x its spread: at most one ulp off
+    assert float((got.double() - want.double()).abs().max()) <= 2.0 ** -7 * float(want.abs().max())
+    leaves = [t.clone().requires_grad_(True) for t in (xb, gb, bb, ab)]
+    y = adain_snake(*leaves)
+    grads = torch.autograd.grad(y, leaves, torch.ones_like(y))
+    assert [g.dtype for g in grads] == [torch.bfloat16] * 4
+    for g, w in zip(grads, adain_snake_bwd_ref(xb, gb, bb, ab, torch.ones_like(y))):
+        assert torch.equal(g, w)
+
+
 def _ncw(a):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32).transpose(0, 2, 1)))
 

@@ -142,13 +142,16 @@ def _run(code, cwd):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and its server and running a tiny single-speaker
-    and a tiny multispeaker CPU synthesis loads neither JAX, flax, PyYAML,
-    transformers nor the JAX package."""
+    """Importing the port, its server, its trainers (with `train/mp.py`) and
+    `eval.py`, and running a tiny single-speaker and a tiny multispeaker CPU
+    synthesis, each with the f32 and the bf16 decoder, loads neither JAX,
+    flax, PyYAML, transformers nor the JAX package."""
     code = """
 import sys
 import numpy as np
+import styletts2_tpu_torch.eval
 import styletts2_tpu_torch.serve
+import styletts2_tpu_torch.train.run
 from styletts2_tpu_torch.config import Config, libritts_config
 from styletts2_tpu_torch.inference import Synthesizer
 for cfg in (Config(), libritts_config()):
@@ -161,10 +164,11 @@ for cfg in (Config(), libritts_config()):
     cfg.model_params.dim_in = 16
     cfg.model_params.diffusion.transformer.num_layers = 1
     cfg.model_params.decoder.upsample_initial_channel = 64
-    syn = Synthesizer(cfg, seed=0, device="cpu")
-    ref = syn.compute_style(np.sin(np.arange(30000) / 20.0)) if syn.multispeaker else None
-    wav, s = syn.inference("hˈɛloʊ.", ref_s=ref, diffusion_steps=3, speed=8.0)
-    assert wav.ndim == 1 and len(wav) > 0 and np.isfinite(wav).all() and s.shape == (1, 64)
+    for dtype in ("float32", "bfloat16"):
+        syn = Synthesizer(cfg, seed=0, device="cpu", decoder_dtype=dtype)
+        ref = syn.compute_style(np.sin(np.arange(30000) / 20.0)) if syn.multispeaker else None
+        wav, s = syn.inference("hˈɛloʊ.", ref_s=ref, diffusion_steps=3, speed=8.0)
+        assert wav.ndim == 1 and len(wav) > 0 and np.isfinite(wav).all() and s.shape == (1, 64)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "transformers", "styletts2_tpu"))
 print("BAD", bad)

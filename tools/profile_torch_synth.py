@@ -1,7 +1,7 @@
 """Latency and device-time breakdown of the PyTorch port's synthesis on one GPU.
 
     python3 tools/profile_torch_synth.py [--config ljspeech|libritts] [--repeats 10]
-        [--trace synth_trace.json]
+        [--trace synth_trace.json] [--decoder-dtype bfloat16]
 
 Full-width Config() (LJSpeech, iSTFTNet) or libritts_config() (multispeaker,
 HiFi-GAN, with the style of chip_smoke.py's seeded voice), seeded random
@@ -14,7 +14,9 @@ time by op, kernel launches, the device busy share (summed kernel time
 over the wall time of the stage spans; one stream, so kernels do not
 overlap) and each synthesis stage's host time, kernel time and launches. The profiler
 slows the host, so its wall time exceeds the warm latency. `--trace` keeps
-the Chrome trace. Needs a CUDA device.
+the Chrome trace. `--decoder-dtype bfloat16` runs the bf16 decoder;
+convolutions and matmuls are f32 otherwise (TF32 off, as the entry points
+set it). Needs a CUDA device.
 """
 
 import argparse
@@ -33,6 +35,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import BENCH_TEXT, REQUESTS, TARGET_AUDIO_SEC, _voice  # noqa: E402
 from styletts2_tpu_torch.config import Config, libritts_config  # noqa: E402
 from styletts2_tpu_torch.inference import Synthesizer  # noqa: E402
+from styletts2_tpu_torch.utils import set_f32_compute  # noqa: E402
 
 STAGES = ("text", "style", "duration", "prosody", "decode")
 
@@ -42,19 +45,19 @@ def main():
     ap.add_argument("--config", choices=("ljspeech", "libritts"), default="ljspeech")
     ap.add_argument("--repeats", type=int, default=10)
     ap.add_argument("--trace", help="where to keep the Chrome trace")
+    ap.add_argument("--decoder-dtype", default=None, choices=["bfloat16"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_f32_compute()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     if args.config == "libritts":
-        syn = Synthesizer(libritts_config(), seed=0, device="cuda")
+        syn = Synthesizer(libritts_config(), seed=0, device="cuda", decoder_dtype=args.decoder_dtype)
         kw = {"ref_s": syn.compute_style(_voice())}
     else:
-        syn = Synthesizer(Config(), seed=0, device="cuda")
+        syn = Synthesizer(Config(), seed=0, device="cuda", decoder_dtype=args.decoder_dtype)
         kw = {}
     speed = max(len(syn.synthesize(BENCH_TEXT, **kw).wav) / 24000.0 / TARGET_AUDIO_SEC, 1.0)
     for i, (text, seed) in enumerate(REQUESTS):
@@ -67,7 +70,8 @@ def main():
             lat.append(time.perf_counter() - t0)
         audio = len(r.wav) / 24000.0
         med = float(np.median(lat))
-        print(json.dumps({"config": args.config, "request": i, "audio_s": audio,
+        print(json.dumps({"config": args.config, "decoder_dtype": args.decoder_dtype or "float32",
+                          "request": i, "audio_s": audio,
                           "frames": int(r.pred_dur.sum()),
                           "latency_ms_median": med * 1e3, "latency_ms_min": min(lat) * 1e3,
                           "latency_ms_max": max(lat) * 1e3, "rtf": audio / med, "device": smi}))
@@ -83,7 +87,8 @@ def main():
         trace.parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(trace))
         breakdown = stage_breakdown(trace)
-    print(json.dumps({"config": args.config, "wall_ms": wall_us / 1e3, **breakdown, "device": smi}))
+    print(json.dumps({"config": args.config, "decoder_dtype": args.decoder_dtype or "float32",
+                      "wall_ms": wall_us / 1e3, **breakdown, "device": smi}))
 
 
 def stage_breakdown(trace: Path, names=STAGES) -> dict:

@@ -1,6 +1,7 @@
 """Step times and device-time breakdown of the port's training on one GPU.
 
     python3 tools/profile_torch_train.py [--stage first|second] [--steps 3] [--trace-dir DIR]
+        [--mixed-precision bf16]
 
 Full-width Config() (LJSpeech, iSTFTNet; batch 16, max_len 400, a clip of
 200 half-frames) with seeded random weights, on chip_smoke.py's fixture of
@@ -14,7 +15,10 @@ op, kernel launches, the device busy share (summed kernel time over the
 step's wall; one stream, so kernels do not overlap) and the host time,
 kernel time and launches of the step's parts (the trainer's profiler
 ranges). The profiler slows the host, so its wall exceeds the timed
-steps'. `--trace-dir` keeps the Chrome traces. Needs a CUDA device.
+steps'. `--trace-dir` keeps the Chrome traces. `--mixed-precision bf16`
+trains as `mixed_precision: bf16` does (train/mp.py); convolutions and
+matmuls run in f32 otherwise (TF32 off, as the entry points set it). Needs
+a CUDA device.
 """
 
 import argparse
@@ -36,6 +40,7 @@ from chip_smoke import training_fixture  # noqa: E402
 from profile_torch_synth import stage_breakdown  # noqa: E402
 from styletts2_tpu_torch.config import Config  # noqa: E402
 from styletts2_tpu_torch.train.run import TRAINERS, setup  # noqa: E402
+from styletts2_tpu_torch.utils import set_f32_compute  # noqa: E402
 
 PARTS = ("forward", "discriminators", "adversarial", "backward", "optimizer", "slm", "slm_d")
 
@@ -45,11 +50,11 @@ def main():
     ap.add_argument("--stage", choices=("first", "second"), default="first")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace-dir", help="where to keep the Chrome traces")
+    ap.add_argument("--mixed-precision", default="", choices=("", "bf16"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_f32_compute()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
@@ -57,6 +62,7 @@ def main():
         cfg = Config()
         cfg.data_params = training_fixture(Path(tmp) / "data")
         cfg.log_dir = str(Path(tmp) / "logs")
+        cfg.mixed_precision = args.mixed_precision
         state, train_loader, _ = setup(cfg, torch.device("cuda"), logging.getLogger("profile"),
                                        args.stage)
         lp, wd_every = cfg.loss_params, cfg.slmadv_params.iter
@@ -85,6 +91,7 @@ def main():
             prof.export_chrome_trace(str(trace))
             parts = stage_breakdown(trace, PARTS)
             print(json.dumps({"stage": args.stage, "phase": phase, "batch": cfg.batch_size,
+                              "mixed_precision": cfg.mixed_precision or "f32",
                               "step_ms": step_ms, "metrics": metrics,
                               "peak_memory_gib": peak / 2 ** 30, "profiled_wall_ms": wall_ms,
                               "kernel_ms": parts["kernel_ms"],
