@@ -5,8 +5,7 @@ voiced/unvoiced agreement.
 `mcd` compares the mel-cepstra (c1..c13, the DCT-II of the log mel of the
 port's front end, `preprocess_mel`) of two 24 kHz waveforms. Its DTW runs
 the repository's C++ dynamic program (`native/dtw.cpp`, built with g++ at
-first use into `_build/`, loaded through ctypes) on the host;
-`dtw_path_ref` is the plain numpy DP the tests hold it to.
+first use into `_build/`, loaded through ctypes) on the host.
 """
 
 from __future__ import annotations
@@ -92,34 +91,6 @@ def dtw_path(a: np.ndarray, b: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     if n <= 0:
         raise RuntimeError(f"dtw_path: the DP found no path ({n})")
     return pa[:n].copy(), pb[:n].copy()
-
-
-def dtw_path_ref(a: np.ndarray, b: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-    """The plain numpy DP (the JAX package's `_dtw_path_numpy`): the same
-    path as `dtw_path`, ties broken diagonal, then up, then left."""
-    dist = _distances(a, b)
-    Ta, Tb = dist.shape
-    acc = np.full((Ta + 1, Tb + 1), np.inf, np.float64)
-    bp = np.zeros((Ta, Tb), np.uint8)
-    acc[0, 0] = 0.0
-    for i in range(1, Ta + 1):
-        diag, up = acc[i - 1, :-1], acc[i - 1, 1:]
-        best = np.minimum(diag, up)
-        bp[i - 1] = np.where(up < diag, 1, 0)
-        left = np.inf
-        for j in range(Tb):
-            m = best[j]
-            if left < m:
-                m = left
-                bp[i - 1, j] = 2
-            left = acc[i, j + 1] = dist[i - 1, j] + m
-    i, j, pa, pb = Ta, Tb, [], []
-    while i > 0 and j > 0:
-        pa.append(i - 1)
-        pb.append(j - 1)
-        step = bp[i - 1, j - 1]
-        i, j = (i - 1, j - 1) if step == 0 else (i - 1, j) if step == 1 else (i, j - 1)
-    return np.asarray(pa[::-1]), np.asarray(pb[::-1])
 
 
 def mcd(wav_a: np.ndarray, wav_b: np.ndarray, use_dtw: bool = True) -> float:

@@ -15,9 +15,18 @@ loss upcasts its inputs. The sequence stack (the aligner, PL-BERT, the
 predictor's LSTMs, the diffusion) stays f32, and the trainers upcast a bf16
 module's output where it enters it. Disabled, `run` is the module's own
 call and `cast_in` returns its input unchanged.
+
+Within a trainer's step (`casts_once`) a parameter is cast once for each
+version of it (an optimizer step makes a new one), not at every call: a
+step runs the decoder up to three times and WavLM up to five, and the
+copy's autograd node carries the gradients of every use back to the
+master.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Optional
 
 import torch
 from torch import nn
@@ -41,6 +50,43 @@ def cast_in(x, on: bool):
     return x
 
 
+_step_casts: Optional[dict] = None  # id(master) -> (master, state, bf16 copy), in a step
+
+
+def cast_param(p: torch.Tensor) -> torch.Tensor:
+    """A floating parameter in bf16. Inside `casts_once` the copy is made
+    once and reused while the parameter's version, its requires_grad and
+    the autograd mode stay the same."""
+    if not p.is_floating_point():
+        return p
+    if _step_casts is None:
+        return p.to(torch.bfloat16)
+    state = (p._version, p.requires_grad, torch.is_grad_enabled(),
+             torch.is_inference_mode_enabled())
+    hit = _step_casts.get(id(p))
+    if hit is not None and hit[0] is p and hit[1] == state:
+        return hit[2]
+    copy = p.to(torch.bfloat16)
+    _step_casts[id(p)] = (p, state, copy)
+    return copy
+
+
+def casts_once(step):
+    """Decorate a trainer's step: within it `cast_param` keeps its copies,
+    which are dropped when the step returns."""
+
+    @functools.wraps(step)
+    def wrapped(*args, **kwargs):
+        global _step_casts
+        outer, _step_casts = _step_casts, {}
+        try:
+            return step(*args, **kwargs)
+        finally:
+            _step_casts = outer
+
+    return wrapped
+
+
 def run(models: nn.ModuleDict, key: str, on: bool, *args, **kwargs):
     """models[key](*args, **kwargs); in bf16 when `on` and key is one of
     BF16_MODULES (its parameters and floating tensor arguments cast, its
@@ -48,6 +94,6 @@ def run(models: nn.ModuleDict, key: str, on: bool, *args, **kwargs):
     module = models[key]
     if not (on and key in BF16_MODULES):
         return module(*args, **kwargs)
-    params = {n: cast_in(p, True) for n, p in module.named_parameters()}
+    params = {n: cast_param(p) for n, p in module.named_parameters()}
     return functional_call(module, params, tuple(cast_in(a, True) for a in args),
                            {k: cast_in(v, True) for k, v in kwargs.items()})

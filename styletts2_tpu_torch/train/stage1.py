@@ -42,7 +42,7 @@ from styletts2_tpu_torch.models.layers import commit_spectral_updates
 from styletts2_tpu_torch.models.wavlm import resample_24k_to_16k
 from styletts2_tpu_torch.ops.align import maximum_path
 from styletts2_tpu_torch.ops.stft import log_norm, preprocess_mel
-from styletts2_tpu_torch.train.mp import enabled, run
+from styletts2_tpu_torch.train.mp import casts_once, enabled, run
 from styletts2_tpu_torch.train.state import TrainState, step_modules
 
 HOP = 300
@@ -144,6 +144,7 @@ class Stage1Trainer:
             mod.train(train and k in GEN_KEYS + ("text_aligner",))
             mod.requires_grad_(k in trainable)
 
+    @casts_once
     def train_step(self, batch: Batch, epoch: int, iters: int,
                    rng: np.random.Generator) -> Optional[Dict[str, float]]:
         """One step (`iters`, the run's step count, is unused: stage 1 has no

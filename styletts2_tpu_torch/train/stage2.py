@@ -65,7 +65,7 @@ from styletts2_tpu_torch.models.diffusion.sampler import (kdiffusion_loss, make_
 from styletts2_tpu_torch.models.layers import commit_spectral_updates
 from styletts2_tpu_torch.models.wavlm import resample_24k_to_16k
 from styletts2_tpu_torch.ops.stft import log_norm, preprocess_mel
-from styletts2_tpu_torch.train.mp import enabled, run
+from styletts2_tpu_torch.train.mp import casts_once, enabled, run
 from styletts2_tpu_torch.train.stage1 import D_KEYS, HOP, aligner_pass, clip_length, clip_slice
 from styletts2_tpu_torch.train.state import TrainState, drop_bias_hh_grads, step_modules
 
@@ -369,6 +369,7 @@ class Stage2Trainer:
         return loss
 
     # ------------------------------------------------------------------
+    @casts_once
     def train_step(self, batch: Batch, epoch: int, iters: int,
                    rng: np.random.Generator) -> Optional[Dict[str, float]]:
         cfg, m, opts = self.cfg, self.models, self.state.opts
