@@ -50,7 +50,10 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      max_len 400, TMA from epoch 1 of 2: 2 pre-TMA and 2 TMA steps, each
      with finite losses and 48 forward and 48 backward kernel launches, 0
      plain-version calls; step times, peak memory, the decoder's change; a
-     second call resumes from the epoch-2 checkpoint and takes one more step
+     second call resumes from the epoch-2 checkpoint and takes one more step.
+     Each epoch's eval artifacts (`_Artifacts`): one decode (48 K1), finite
+     reconstructions, clips and attention written to eval_audio/ and
+     eval_attn/
  11. training reference: one stage-1 step at reduced width, the same weights
      on the card and on the CPU (eval mode, draws from the host, the source's
      STFT phase zeroed), before TMA on the soft alignment and from TMA on the
@@ -65,7 +68,9 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      and wd moving just when the phase steps them; 0 plain-version calls;
      peak memory, sigma_data before and after and the line written into the
      config copy; a second call resumes from epoch_2nd_00002.pth. Batch 16,
-     or the largest that fits (the OOM is printed)
+     or the largest that fits (the OOM is printed). Each epoch's eval
+     artifacts as phase 10's, the joint epoch's the fully sampled utterance
+     (5 ADPM2 steps, a decode of 48 K1 launches)
  13. finetune: 2 steps of `run_stage("finetune")` on configs/config_ft.yml
      (built without PyYAML) from phase 12's second_final.pth, weights only,
      joint from epoch 0; the same checks
@@ -89,6 +94,19 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      first step of each stage within 0.15 of an f32 step from the same
      weights and draws, f32 master weights and Adam moments; step times and
      peak memory beside phases 10 and 12's
+ 17. reference checkpoints (`reference_phase`): seeded full-width weights of
+     Config() and libritts_config() written as the reference's `.pth`
+     (`reference_net`: `module.` prefixes, the diffusion UNet under `unet.`
+     and `diffusion.net.`, ALBERT's pooler, LSTM biases split in two
+     nonzero halves); `python -m styletts2_tpu_torch.demo --ckpt` in 3
+     subprocesses at once (LJSpeech, LJSpeech --longform, LibriTTS with a
+     22.05 kHz --ref_wav), each exiting 0 with a finite 24 kHz WAV as long
+     as the same request in this process; `serve --ckpt` answering 3
+     requests with 48 / 96 K1 launches per decode and 0 plain-version calls,
+     its weights the port layout's and a request within 1e-4 of the
+     port-layout Synthesizer's (host draws, the chaotic source parts
+     zeroed); the diffusion sampler family on the card against the CPU with
+     handed draws, within 1e-4
 Every number line carries the card's name and power limit. Then a JSON line
 of the kernels (f32 and bf16 times) and, last, {"ok": true, "device": {...}}.
 It needs a CUDA device and the repository beside it; without either it
@@ -298,6 +316,40 @@ def _host_draws(fn, *args, **kwargs):
         pdi.SineGen.forward = sines
 
 
+def reference_net(state_dict, seed=0):
+    """The port's state_dict {"module.name": tensor} as the `net` of a
+    reference StyleTTS 2 checkpoint, {module: state_dict}, in the layout the
+    reference's DataParallel training writes: `module.` on every key; the
+    diffusion weights under `unet.` and again under `diffusion.net.` (the
+    reference's KDiffusion holds the same UNet); ALBERT's pooler and
+    position ids beside PL-BERT; each LSTM bias b (bias_ih + bias_hh) split
+    into (b - r, r), r seeded and nonzero, as a trained LSTM holds it."""
+    g = torch.Generator().manual_seed(seed)
+    net = collections.defaultdict(dict)
+    for name, v in state_dict.items():
+        key, rest = name.split(".", 1)
+        if "bias_hh" in rest:
+            continue  # written with its bias_ih
+        if "bias_ih" in rest:
+            hh = rest.replace("bias_ih", "bias_hh")
+            r = 0.1 * torch.randn(v.shape, generator=g)
+            net[key][f"module.{rest}"] = v + state_dict[f"{key}.{hh}"] - r
+            net[key][f"module.{hh}"] = r
+        elif key == "diffusion":
+            net[key][f"module.unet.{rest}"] = v
+            net[key][f"module.diffusion.net.{rest}"] = v.clone()
+        else:
+            net[key][f"module.{rest}"] = v
+    if "bert" in net:
+        bert = net["bert"]
+        hidden = bert["module.encoder.embedding_hidden_mapping_in.weight"].shape[0]
+        positions = bert["module.embeddings.position_embeddings.weight"].shape[0]
+        bert["module.pooler.weight"] = torch.randn((hidden, hidden), generator=g) / hidden ** 0.5
+        bert["module.pooler.bias"] = torch.zeros(hidden)
+        bert["module.embeddings.position_ids"] = torch.arange(positions)[None]
+    return dict(net)
+
+
 class _Tally:
     """While entered: the kernels' launches by (kernel, x's dtype name), K1
     as `_forward_kernel` is called and K2 as `adain_snake_bwd` is, and the
@@ -369,6 +421,78 @@ class _Counts:
                                f"{self.decodes} decodes, {self.plain_calls} plain-version calls")
 
 
+class _Artifacts:
+    """While entered: every `eval_artifacts` call of the trainers (stage 1,
+    stage 2, finetuning), with the step its files carry (the epoch it
+    closes, + 1), whether it sampled, its audio tags, whether all it
+    returned is finite, and its K1 launches. `check` holds each call to one
+    decode (48 launches) and its files in `log_dir`."""
+
+    def __init__(self, op):
+        self.op, self.calls = op, []
+
+    def __enter__(self):
+        from styletts2_tpu_torch.train.stage1 import Stage1Trainer
+        from styletts2_tpu_torch.train.stage2 import Stage2Trainer
+
+        self._saved = [(cls, cls.eval_artifacts) for cls in (Stage1Trainer, Stage2Trainer)]
+        for cls, fn in self._saved:
+            def wrapped(trainer, batch, rng, *a, _fn=fn, **k):
+                k1 = self.op.adain_snake.launches
+                try:
+                    art = _fn(trainer, batch, rng, *a, **k) or {}
+                except Exception as e:  # run_stage logs it and carries on: `check` raises
+                    self.calls.append({"step": trainer.state.epoch + 1, "error": repr(e)})
+                    raise
+                arrays = list(art.get("audio", {}).values()) + ([art["attn"]] if "attn" in art else [])
+                self.calls.append({"step": trainer.state.epoch + 1, "sample": k.get("sample", False),
+                                   "tags": sorted(art.get("audio", {})), "attn": "attn" in art,
+                                   "finite": all(np.isfinite(x).all() for x in arrays),
+                                   "k1": self.op.adain_snake.launches - k1})
+                return art or None
+            cls.eval_artifacts = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        for cls, fn in self._saved:
+            cls.eval_artifacts = fn
+
+    @property
+    def k1(self):
+        return sum(c["k1"] for c in self.calls)
+
+    def check(self, log_dir, tag, epochs, joint_epoch=None):
+        """Raise unless there was one call for each of the `epochs` the run
+        took and every one decoded once (48 K1 launches), returned finite
+        arrays and left them as 24 kHz WAVs (and stage 1's attention as
+        .npy) in `log_dir`, sampling exactly from `joint_epoch` on (stage
+        2); print one line."""
+        log_dir = Path(log_dir)
+        if [c["step"] - 1 for c in self.calls] != list(epochs):
+            raise RuntimeError(f"[{tag}] eval artifacts {self.calls} for epochs {list(epochs)}")
+        for c in self.calls:
+            if "error" in c:
+                raise RuntimeError(f"[{tag}] eval artifacts at step {c['step']}: {c['error']}")
+            want_tags = (["gt_0", "sampled_0"] if c["sample"] else
+                         [f"{t}_{b}" for t in ("gt", "y_rec") for b in range(3)])
+            sample = joint_epoch is not None and c["step"] - 1 >= joint_epoch
+            if c["k1"] != CALLS_PER_DECODE or not c["finite"] or c["tags"] != want_tags or \
+                    c["sample"] != sample or c["attn"] != (joint_epoch is None):
+                raise RuntimeError(f"[{tag}] eval artifacts: {c}")
+            for t in c["tags"]:
+                with wave.open(str(log_dir / "eval_audio" / f"eval_{t}_step{c['step']}.wav")) as f:
+                    if f.getframerate() != 24000 or f.getnframes() <= 0:
+                        raise RuntimeError(f"[{tag}] eval_{t}_step{c['step']}.wav: {f.getnframes()} "
+                                           f"frames at {f.getframerate()} Hz")
+            if c["attn"] and not np.isfinite(np.load(log_dir / "eval_attn" /
+                                                     f"attn_step{c['step']}.npy")).all():
+                raise RuntimeError(f"[{tag}] attn_step{c['step']}.npy: non-finite")
+        print(f"[{tag}] eval artifacts at steps {[c['step'] for c in self.calls]} (sampled: "
+              f"{[c['step'] for c in self.calls if c['sample']]}): finite, written to eval_audio/"
+              + (" and eval_attn/" if joint_epoch is None else "")
+              + f", K1 {self.k1} ({CALLS_PER_DECODE} per call)", flush=True)
+
+
 def _requests(op, syn, tag, smi, per_decode, trim, **kwargs):
     """REQUESTS through `syn.synthesize(text, seed=..., **kwargs)`: each
     waveform finite and sum(durations) * 600 - trim samples long, each decode
@@ -408,6 +532,16 @@ def _voice(seconds=3.0, sr=24000):
     phase = 2 * np.pi * np.cumsum(f0) / sr
     wav = sum(0.3 / k * np.sin(k * phase) for k in range(1, 6)) + 0.02 * rng.standard_normal(t.size)
     return wav.astype(np.float32)
+
+
+def _write_voice(path, sr):
+    """`_voice` as a 16-bit WAV at `sr`."""
+    pcm = (np.clip(_voice(sr=sr), -1, 1) * 32767).astype(np.int16)
+    with wave.open(str(path), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(pcm.tobytes())
 
 
 def _utterance(rng, seconds, sr=24000):
@@ -639,8 +773,10 @@ def training_phase(op, build_dir, smi):
         Stage1Trainer.train_step = timed_step
         torch.cuda.reset_peak_memory_stats()
         op.adain_snake.launches = op.adain_snake.bwd_launches = 0
+        arts = _Artifacts(op)
         try:
             tally.__enter__()
+            arts.__enter__()
             t0 = time.perf_counter()
             state = train_run.run_stage("first", cfg, device="cuda")
             wall = time.perf_counter() - t0
@@ -658,7 +794,9 @@ def training_phase(op, build_dir, smi):
             del state
         finally:
             Stage1Trainer.train_step = train_step
+            arts.__exit__()
             tally.__exit__()
+        arts.check(cfg.log_dir, "10 training", sorted({st["epoch"] for st in steps}))
         train_k1, train_k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
         log = (Path(cfg.log_dir) / "train.log").read_text()
         written = sorted(p.name for p in Path(cfg.log_dir).iterdir())
@@ -680,10 +818,11 @@ def training_phase(op, build_dir, smi):
     tma = [st["ms"] for st in steps[:first_steps] if st["epoch"] >= cfg.loss_params.TMA_epoch]
     if len(pre) < 2 or len(tma) < 2 or first_epoch != 2:
         raise RuntimeError(f"training: {len(pre)} pre-TMA and {len(tma)} TMA steps, epoch {first_epoch}")
-    if tally.plain or train_k1 != CALLS_PER_STEP * len(steps) + CALLS_PER_DECODE * len(evals) or \
-            train_k2 != CALLS_PER_STEP * len(steps):
+    if tally.plain or train_k1 != CALLS_PER_STEP * len(steps) + CALLS_PER_DECODE * len(evals) + \
+            arts.k1 or train_k2 != CALLS_PER_STEP * len(steps):
         raise RuntimeError(f"training: {train_k1} forward / {train_k2} backward launches for "
-                           f"{len(steps)} steps and {len(evals)} validations, {tally.plain} plain calls")
+                           f"{len(steps)} steps, {len(evals)} validations and {len(arts.calls)} "
+                           f"eval artifacts, {tally.plain} plain calls")
     if not (np.isfinite(dec_delta) and dec_delta > 0):
         raise RuntimeError(f"training: the decoder moved by {dec_delta}")
     resume = [x for x in log.splitlines() if "auto-resuming from" in x]
@@ -697,7 +836,8 @@ def training_phase(op, build_dir, smi):
           f"{val_mel}; peak memory "
           f"{peak / 2 ** 30:.2f} GiB; the decoder moved {dec_delta:.4e} (norm {dec_norm:.4e}); "
           f"launches K1 {train_k1} K2 {train_k2} ({CALLS_PER_STEP} each per step, K1 48 per "
-          f"validation), 0 plain-version calls; wall {wall:.1f} s [{smi}]", flush=True)
+          f"validation and per eval artifact), 0 plain-version calls; wall {wall:.1f} s [{smi}]",
+          flush=True)
     print(f"[10 training] {resume[-1].split(': ', 1)[-1]}; then 1 step to (step, epoch) {resumed}; "
           f"files {written}", flush=True)
     return train_k1, train_k2, {"tma": tma, "peak": peak}
@@ -819,8 +959,9 @@ def _stage2_run(op, stage, cfg, smi, tag, **kwargs):
     Stage2Trainer.train_step, Stage2Trainer.validate = timed_step, counted_validate
     torch.cuda.reset_peak_memory_stats()
     op.adain_snake.launches = op.adain_snake.bwd_launches = 0
+    arts = _Artifacts(op)
     try:
-        with tally:
+        with tally, arts:
             state = train_run.run_stage(stage, cfg, device="cuda", **kwargs)
         sigma = state.sigma_data
         _f32_masters(state, tag)
@@ -849,11 +990,14 @@ def _stage2_run(op, stage, cfg, smi, tag, **kwargs):
             raise RuntimeError(f"{tag} step {i}: slm_valid_frac {m['slm_valid_frac']}")
         if st["moved"] != expect:
             raise RuntimeError(f"{tag} step {i}: moved {st['moved']}, expected {expect}")
+    arts.check(cfg.log_dir, tag, sorted({st["epoch"] for st in steps}), cfg.loss_params.joint_epoch)
     val_f32 = tally.n["K1", "float32"] - sum(st["k1"] for st in steps if step_dtype == "float32")
-    if tally.plain or k1 != sum(st["k1"] for st in steps) + CALLS_PER_DECODE * n_val[0] or \
-            k2 != sum(st["k2"] for st in steps) or val_f32 != CALLS_PER_DECODE * n_val[0]:
-        raise RuntimeError(f"{tag}: {k1} K1 / {k2} K2 launches for {len(steps)} steps and "
-                           f"{n_val[0]} validation batches, {tally.plain} plain calls")
+    if tally.plain or k1 != sum(st["k1"] for st in steps) + CALLS_PER_DECODE * n_val[0] + arts.k1 \
+            or k2 != sum(st["k2"] for st in steps) or \
+            val_f32 != CALLS_PER_DECODE * n_val[0] + arts.k1:
+        raise RuntimeError(f"{tag}: {k1} K1 / {k2} K2 launches for {len(steps)} steps, "
+                           f"{n_val[0]} validation batches and {len(arts.calls)} eval artifacts, "
+                           f"{tally.plain} plain calls")
     return steps, sigma, peak, k1, k2, log
 
 
@@ -1018,12 +1162,7 @@ def serve_burst(op, serve, build_dir, smi, tag, speed, extra=(), dtype="float32"
     batch, 96 launches per decode call, all with an x of `dtype`. Returns
     (the burst's _Counts, its wall s)."""
     with tempfile.TemporaryDirectory(dir=build_dir) as vdir:
-        pcm = (np.clip(_voice(sr=22050), -1, 1) * 32767).astype(np.int16)
-        with wave.open(str(Path(vdir) / "seeded.wav"), "wb") as f:
-            f.setnchannels(1)
-            f.setsampwidth(2)
-            f.setframerate(22050)
-            f.writeframes(pcm.tobytes())
+        _write_voice(Path(vdir) / "seeded.wav", 22050)
         args = serve.parse_args(["--config", str(REPO / "configs" / "config_libritts.yml"),
                                  "--voices", vdir, "--port", "0", *extra])
         t0 = time.perf_counter()
@@ -1292,6 +1431,216 @@ def bf16_training_phase(op, build_dir, smi, f32_stage1, f32_stage2):
     return launches
 
 
+DEMO_TEXT = REQUESTS[1][0]
+LONG_TEXT = "hˈɛloʊ ðɛɹ. " + REQUESTS[1][0]
+REF_TOL = 1e-4  # the bias split changes only an LSTM bias's rounding: far below phase 5's 1e-3
+
+
+def _demo(args):
+    """`python -m styletts2_tpu_torch.demo *args` started from the checkout."""
+    return subprocess.Popen([sys.executable, "-m", "styletts2_tpu_torch.demo", *map(str, args)],
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _sampler_checks(sd, cfg, dev, smi):
+    """The diffusion sampler family at full width (Config()'s denoiser with
+    the file's weights, a 40-token PL-BERT context): each sampler and the
+    v-diffusion loss on the card against the CPU, the same numpy draws
+    handed to both; within REF_TOL of the peak."""
+    from styletts2_tpu_torch.models.build import _diffusion
+    from styletts2_tpu_torch.models.diffusion import sampler as S
+
+    cpu = _diffusion(cfg)
+    cpu.load_state_dict({k[len("diffusion."):]: v for k, v in sd.items() if k.startswith("diffusion.")})
+    cpu.eval().requires_grad_(False)
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(17)
+    emb = rng.standard_normal((1, 40, cfg.plbert_params.hidden_size)).astype(np.float32)
+    shape = (1, 1, 2 * cfg.model_params.style_dim)
+    steps = 5
+
+    def normals(n):
+        return [rng.standard_normal(shape).astype(np.float32) for _ in range(n)]
+
+    noise, x0 = normals(2)
+    churn = normals(steps - 1)
+    inpaint = [normals(S.inpaint_draws(steps)) for _ in range(2)]
+    sigmas = rng.uniform(size=(1,)).astype(np.float32)
+    mask = np.zeros(shape, np.float32)
+    mask[..., : shape[-1] // 2] = 1.0
+
+    def run(mod, dev):
+        def t(x):
+            return torch.from_numpy(np.asarray(x)).to(dev)
+
+        e, lengths = t(emb), torch.tensor([40])
+
+        def net(x, c_noise):
+            return mod(x, c_noise, e, embedding_lengths=lengths)
+
+        denoise = S.make_denoise_fn(net, 0.2)
+        out = {name: S.SAMPLERS[name](denoise, t(noise), steps, churn=[t(c) for c in churn], **kw)
+               for name, kw in (("aeuler", {}), ("karras", {"s_churn": 1.0}))}
+        out["v"] = S.sample_v(net, t(noise), steps)
+        out["inpaint"] = S.inpaint_adpm2(denoise, t(noise), t(mask), steps,
+                                         draws=[t(d) for d in inpaint[0]])
+        out["span"] = S.span_by_span_compose(denoise, t(noise), 2, steps,
+                                             draws=[[t(d) for d in ds] for ds in inpaint])
+        out["vloss"] = S.vdiffusion_loss(net, t(x0), sigmas=t(sigmas), noise=t(noise))[None]
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        got = run(card, dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = run(cpu, "cpu")
+    errs = {k: _rel(got[k], want[k]) for k in want}
+    print("[17 samplers] full-width denoiser, card vs CPU with handed draws: rel err "
+          + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+          + f" (tol {REF_TOL:g}); all six on the card {ms:.1f} ms (first call) [{smi}]", flush=True)
+    if not all(np.isfinite(v).all() for v in got.values()) or max(errs.values()) >= REF_TOL:
+        raise RuntimeError(f"samplers: card and CPU disagree: {errs}")
+
+
+def reference_phase(op, serve, dev, build_dir, smi):
+    """Phase 17: the reference's own checkpoint layout. For Config() and
+    libritts_config() at full width, seeded port weights written as a
+    reference `.pth` (`reference_net`); the demo CLI in 3 subprocesses at
+    once (LJSpeech, LJSpeech --longform, LibriTTS with a 22.05 kHz
+    --ref_wav), each exiting 0 with a finite 24 kHz WAV as long as the same
+    request in this process; `serve --ckpt` answering 3 requests with
+    48 / 96 K1 launches per decode and 0 plain-version calls, its weights
+    those of the port's layout (the LSTM bias halves summing to the bias)
+    and its request agreeing with the port-layout Synthesizer's; the
+    sampler family on the card. Returns the counted K1 launches."""
+    from styletts2_tpu_torch.config import Config, libritts_config
+    from styletts2_tpu_torch.inference import Synthesizer
+    from styletts2_tpu_torch.models.build import build_models
+    from styletts2_tpu_torch.utils import read_wav, resample_linear
+
+    cases = {"LJSpeech": ("config.yml", Config, CALLS_PER_DECODE, 0),
+             "LibriTTS": ("config_libritts.yml", libritts_config, CALLS_PER_HIFIGAN_DECODE, 50)}
+    launches, start = 0, time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=build_dir) as tdir:
+        tdir = Path(tdir)
+        voice = tdir / "voice_22k.wav"
+        _write_voice(voice, 22050)
+        files, sds = {}, {}
+        for name, (_, make, _, _) in cases.items():
+            t0 = time.perf_counter()
+            sds[name] = build_models(make(), torch.Generator().manual_seed(7)).state_dict()
+            net = reference_net(sds[name], seed=8)
+            files[name] = tdir / f"{name}_epochs_2nd_00020.pth"
+            torch.save({"net": net, "epoch": 20, "iters": 0}, files[name])
+            print(f"[17 reference ckpt] {name}: {files[name].name}, {sum(len(v) for v in net.values())} "
+                  f"tensors in {len(net)} modules, {files[name].stat().st_size / 2 ** 20:.0f} MiB, "
+                  f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+            del net
+        cfg_path = {name: REPO / "configs" / yml for name, (yml, *_) in cases.items()}
+        demos = {"LJSpeech": ["--config", cfg_path["LJSpeech"], "--ckpt", files["LJSpeech"],
+                              "--text", DEMO_TEXT],
+                 "LJSpeech --longform": ["--config", cfg_path["LJSpeech"], "--ckpt",
+                                         files["LJSpeech"], "--text", LONG_TEXT, "--longform"],
+                 "LibriTTS --ref_wav": ["--config", cfg_path["LibriTTS"], "--ckpt",
+                                        files["LibriTTS"], "--text", DEMO_TEXT, "--ref_wav", voice]}
+        t0 = time.perf_counter()
+        procs = {k: _demo([*a, "--out", tdir / f"demo{i}.wav", "--seed", 3])
+                 for i, (k, a) in enumerate(demos.items())}
+        outs = {k: p.communicate(timeout=600) + (p.returncode, time.perf_counter() - t0)
+                for k, p in procs.items()}
+        for k, (out, err, rc, wall) in outs.items():
+            if rc != 0:
+                raise RuntimeError(f"demo {k}: exit {rc}\n{err[-3000:]}")
+
+        for name, (_, make, per_decode, trim) in cases.items():
+            tag = f"17 serve --ckpt {name}"
+            args = serve.parse_args(["--config", str(cfg_path[name]), "--ckpt", str(files[name]),
+                                     "--port", "0"])
+            t0 = time.perf_counter()
+            server = serve.make_server(args)
+            built = time.perf_counter() - t0
+            port = server.start_background(args.host, args.port)
+            syn = server.syn
+            try:
+                natural = syn.synthesize(BENCH_TEXT, seed=0)  # calibration; also the warm-up
+                speed = max(len(natural.wav) / 24000.0 / TARGET_AUDIO_SEC, 1.0)
+                for text, seed in REQUESTS:  # warm-up at the requests' shapes
+                    _post(port, {"text": text, "seed": seed, "speed": speed})
+                lat = []
+                with _Counts(op, syn.models["decoder"]) as c:
+                    for text, seed in REQUESTS:
+                        t1 = time.perf_counter()
+                        code, ctype, body = _post(port, {"text": text, "seed": seed, "speed": speed})
+                        lat.append((time.perf_counter() - t1) * 1e3)
+                        with wave.open(io.BytesIO(body)) as f:
+                            frames = f.getnframes()
+                        if code != 200 or ctype != "audio/wav" or frames <= 0 or \
+                                (frames + trim) % SAMPLES_PER_FRAME:
+                            raise RuntimeError(f"[{tag}] {code} {ctype}, {frames} samples")
+                c.check(per_decode, tag)
+                launches += c.launches
+            finally:
+                server.close()
+            print(f"[{tag}] make_server in {built:.1f} s; 3 requests, warm HTTP latency "
+                  f"{', '.join(f'{t:.1f}' for t in lat)} ms (speed {speed:.3f}); {c.launches} K1 "
+                  f"launches in {c.decodes} decodes ({per_decode} per decode), 0 plain-version "
+                  f"calls [{smi}]", flush=True)
+
+            # the weights: the port's layout, the LSTM bias halves summing to the bias
+            got = syn.models.state_dict()
+            sd = sds[name]
+            bad = [k for k, v in sd.items() if "bias_ih" not in k and "bias_hh" not in k
+                   and not torch.equal(got[k].cpu(), v)]
+            sums = max(float((got[k].cpu() + got[k.replace("bias_ih", "bias_hh")].cpu()
+                              - v - sd[k.replace("bias_ih", "bias_hh")]).abs().max())
+                       for k, v in sd.items() if "bias_ih" in k)
+            if got.keys() != sd.keys() or bad or sums > 1e-6:
+                raise RuntimeError(f"[{tag}] weights: {bad[:5]}, LSTM bias sums off by {sums}")
+
+            # the demo subprocesses: the same requests here, the same lengths
+            for k, (out, err, rc, wall) in outs.items():
+                if not k.startswith(name):
+                    continue
+                wav, sr = read_wav(str(tdir / f"demo{list(demos).index(k)}.wav"))
+                if "--longform" in k:
+                    want = syn.long_form(LONG_TEXT, diffusion_steps=5, embedding_scale=1.0)
+                else:
+                    ref_s = None
+                    if "--ref_wav" in k:
+                        w, vsr = read_wav(str(voice))
+                        ref_s = syn.compute_style(resample_linear(w, vsr, 24000))
+                    want, _ = syn.inference(DEMO_TEXT, ref_s=ref_s, seed=3)
+                if sr != 24000 or len(wav) != len(want) or not np.isfinite(wav).all():
+                    raise RuntimeError(f"demo {k}: {len(wav)} samples at {sr} Hz, not {len(want)}")
+                print(f"[17 demo] {k}: exit 0 after {wall:.1f} s (3 demos at once); "
+                      f"{out.strip().splitlines()[-1]}; {len(wav)} samples at 24 kHz, as this "
+                      f"process's [{smi}]", flush=True)
+
+            # agreement with the port's layout: host draws, the chaotic source parts zeroed
+            mine = Synthesizer(make(), state_dict=sd, device=dev)
+            if syn.hifigan:  # phase 8's head gain: out of tanh's saturation
+                for m in (syn, mine):
+                    m.models["decoder"].generator.conv_post.weight_g.mul_(0.01)
+            noise = np.random.default_rng(1).standard_normal(
+                (1, 1, 2 * syn.style_dim)).astype(np.float32)
+            a = _host_draws(syn.synthesize, REQUESTS[1][0], noise=noise, speed=speed)
+            b = _host_draws(mine.synthesize, REQUESTS[1][0], noise=noise, speed=speed)
+            s_err, w_err = _rel(a.s_pred, b.s_pred), _rel(a.wav, b.wav)
+            print(f"[{tag}] against the port-layout weights: durations "
+                  f"{'equal' if np.array_equal(a.pred_dur, b.pred_dur) else 'DIFFER'}, style rel "
+                  f"err {s_err:.2e}, waveform rel err {w_err:.2e} (tol {REF_TOL:g})", flush=True)
+            if not (np.array_equal(a.pred_dur, b.pred_dur) and np.isfinite(a.wav).all()
+                    and s_err < REF_TOL and w_err < REF_TOL):
+                raise RuntimeError(f"[{tag}] the reference file and the port's layout disagree")
+            del server, syn, mine
+            torch.cuda.empty_cache()
+        _sampler_checks(sds["LJSpeech"], Config(), dev, smi)
+    print(f"[17 reference ckpt] phase 17 in {time.perf_counter() - start:.1f} s wall; {launches} "
+          f"counted K1 launches [{smi}]", flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -1430,6 +1779,7 @@ def main():
     stage2_reference_phase(dev)  # 14
     bf16_k1 = bf16_serving_phase(op, serve, build_dir, smi)  # 15
     mp_k1, mp_k2 = bf16_training_phase(op, build_dir, smi, f32_stage1, f32_stage2)  # 16
+    ref_k1 = reference_phase(op, serve, dev, build_dir, smi)  # 17
 
     def row(t, shape, dtype):
         return {"shape": list(shape), "dtype": dtype, "ms": t["cold"][0], "plain_ms": t["cold"][1],
@@ -1442,7 +1792,8 @@ def main():
         "name": "adain_snake", "route": "cuda",
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:38",
-        "launches": lj.launches + lt.launches + sv.launches + train_k1 + stage2_k1 + bf16_k1 + mp_k1,
+        "launches": lj.launches + lt.launches + sv.launches + train_k1 + stage2_k1 + bf16_k1 + mp_k1
+        + ref_k1,
         "max_abs_err": max_err["float32"],
         "ms": fwd["cold"][0], "plain_ms": fwd["cold"][1], "bound_ms": fwd["bound"],
         "bound_by": "bytes", "library_ms": None, "shape": list(fwd_shape),

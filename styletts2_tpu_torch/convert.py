@@ -1,4 +1,5 @@
-"""JAX parameter tree -> the port's state_dict.
+"""JAX parameter tree, or a reference checkpoint's `net`, -> the port's
+state_dict.
 
 `state_dict_from_jax(params, cfg)` takes the JAX package's variables for the
 modules `build.module_keys(cfg)` names ({module: {"params": tree}}, plus a
@@ -19,17 +20,24 @@ included; num_batches_tracked 0), `convert_mpd`, `convert_msd` and
 `convert_wavlm` (the scanned layers 1..N-1 unstacked; the positional conv's
 folded weight as the plain `weight`), and stage 2's WavLM discriminator
 `wd` as the exact inverse of `convert_wd`.
+
+`state_dict_from_reference(net, cfg)` reads the `net` dict of a StyleTTS 2
+checkpoint ({module: state_dict}, the reference's `.pth` or the port's own
+trainer files): the port's module names are the reference's, so it strips
+DataParallel's `module.` prefixes and takes the diffusion model's `unet.`
+weights, and reads nothing else.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+import logging
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from styletts2_tpu_torch.config import Config
-from styletts2_tpu_torch.models.build import module_keys
+from styletts2_tpu_torch.models.build import module_keys, parameter_names
 
 
 def _np(x) -> np.ndarray:
@@ -379,4 +387,41 @@ def state_dict_from_jax(params: Dict[str, Any], cfg: Config,
         _MODULES[key](params[key], sd)
         for name, v in sd.items():
             out[f"{key}.{name}"] = torch.from_numpy(np.ascontiguousarray(v))
+    return out
+
+
+def state_dict_from_reference(net: Mapping[str, Mapping[str, torch.Tensor]], cfg: Config,
+                              keys: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
+    """A checkpoint's `net` ({module: state_dict}) -> the port's state_dict
+    of the modules `keys` (by default `cfg`'s synthesis modules), the
+    counterpart of the JAX package's `strip_module_prefix` and
+    `convert_styletts2_checkpoint`. Every key loses a leading `module.`; the
+    diffusion module is its `unet.` weights without the prefix where the
+    file has them (the reference's AudioDiffusionConditional, whose
+    `diffusion.net.*` repeats the same UNet). Each LSTM keeps its bias_ih
+    and bias_hh: the port's LSTMs add both, as the reference's do. A name a
+    module needs that the file lacks is a RuntimeError naming both; the names
+    nothing reads (ALBERT's pooler and position ids, `diffusion.net.*`) go
+    into one log line."""
+    keys = tuple(keys or module_keys(cfg))
+    missing = [k for k in keys if k not in net]
+    if missing:
+        raise RuntimeError(f"the checkpoint has no weights for {missing}")
+    out: Dict[str, torch.Tensor] = {}
+    unused = []
+    for key, names in parameter_names(cfg, keys).items():
+        sd = {k[7:] if k.startswith("module.") else k: v for k, v in net[key].items()}
+        if key == "diffusion" and any(k.startswith("unet.") for k in sd):
+            unused += [f"diffusion.{k}" for k in sd if not k.startswith("unet.")]
+            sd = {k[5:]: v for k, v in sd.items() if k.startswith("unet.")}
+        for name in names:
+            if name not in sd:
+                raise RuntimeError(f"module {key!r}: the checkpoint has no {name!r}")
+            out[f"{key}.{name}"] = sd[name]
+        wanted = set(names)
+        unused += [f"{key}.{k}" for k in sd if k not in wanted]
+    if unused:
+        shown = ", ".join(unused[:12]) + (", ..." if len(unused) > 12 else "")
+        logging.getLogger(__name__).info(
+            f"state_dict_from_reference: {len(unused)} names nothing reads: {shown}")
     return out

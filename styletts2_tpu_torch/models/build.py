@@ -13,7 +13,7 @@ keys are therefore `<module>.<reference torch name>`, the layout
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -153,6 +153,16 @@ def build_training_models(cfg: Config, generator: Optional[torch.Generator] = No
         _init_weights(second, generator)
         models.update(second)
     return models
+
+
+def parameter_names(cfg: Config, keys: Sequence[str]) -> Dict[str, List[str]]:
+    """{module: its state_dict names} for the modules `keys` names, read off
+    modules built on the meta device (no memory, no weights): synthesis's
+    where they suffice, else the stage-2 trainer's."""
+    with torch.device("meta"):
+        models = (build_models(cfg) if set(keys) <= set(module_keys(cfg))
+                  else build_training_models(cfg, stage="second"))
+    return {k: list(models[k].state_dict()) for k in keys}
 
 
 @torch.no_grad()

@@ -20,7 +20,7 @@ Endpoints:
 
 Run (on a CUDA card; --device cpu for a machine without one):
     python -m styletts2_tpu_torch.serve --config configs/config_libritts.yml \\
-        [--ckpt net.pt] [--voices refdir/] [--port 8760] [--max-batch 8] \\
+        [--ckpt epochs_2nd_00020.pth] [--voices refdir/] [--port 8760] [--max-batch 8] \\
         [--window-ms 15] [--device cuda] [--decoder-dtype bfloat16]
 """
 
@@ -33,7 +33,6 @@ import queue
 import threading
 import time
 import traceback
-import wave
 from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Optional
@@ -45,13 +44,10 @@ SR = 24000
 
 def wav_bytes(data: np.ndarray, sr: int = SR) -> bytes:
     """float32 [-1, 1] mono -> an in-memory 16-bit PCM WAV file."""
-    pcm = (np.clip(np.asarray(data, np.float32), -1.0, 1.0) * 32767.0).astype(np.int16)
+    from styletts2_tpu_torch.utils import write_wav
+
     buf = io.BytesIO()
-    with wave.open(buf, "wb") as f:
-        f.setnchannels(1)
-        f.setsampwidth(2)
-        f.setframerate(sr)
-        f.writeframes(pcm.tobytes())
+    write_wav(buf, data, sr)
     return buf.getvalue()
 
 
@@ -271,21 +267,23 @@ def load_synthesizer(config: Optional[str], ckpt: Optional[str] = None, device: 
                      decoder_dtype: Optional[str] = None):
     """The Synthesizer of a YAML config (`Config()` without one) on `device`.
     The repository's two configs are built without PyYAML
-    (`config.config_from_path`). `ckpt` is a torch file {"net": {module:
-    state_dict}} in the port's layout (the weights of
-    `convert.state_dict_from_jax`), such as a checkpoint of the port's
-    trainers: each module synthesis runs (`build.module_keys`) is loaded
-    strictly, the training-only ones (aligner, pitch extractor,
-    discriminators) are skipped, and a module the file lacks is an error.
-    The sampler's sigma_data is the file's `sigma_data` (stage 2's
-    estimate), else the config's. Without `ckpt` the weights are random,
-    drawn from seed 0. A CUDA device that is not there is an error, never a
-    fall-back to the CPU. `decoder_dtype`: see `Synthesizer`."""
+    (`config.config_from_path`). `ckpt` is a StyleTTS 2 checkpoint, a torch
+    file {"net": {module: state_dict}}: the reference's own `.pth` (its
+    DataParallel `module.` prefixes and its diffusion model's `unet.`
+    weights included) or one of the port's trainers, both read by
+    `convert.state_dict_from_reference`. Each module synthesis runs
+    (`build.module_keys`) is loaded strictly, the training-only ones
+    (aligner, pitch extractor, discriminators) are skipped, and a module or
+    a weight the file lacks is an error. The sampler's sigma_data is the
+    file's `sigma_data` (the port's stage-2 estimate), else the config's.
+    Without `ckpt` the weights are random, drawn from seed 0. A CUDA device
+    that is not there is an error, never a fall-back to the CPU.
+    `decoder_dtype`: see `Synthesizer`."""
     import torch
 
     from styletts2_tpu_torch.config import Config, config_from_path
+    from styletts2_tpu_torch.convert import state_dict_from_reference
     from styletts2_tpu_torch.inference import Synthesizer
-    from styletts2_tpu_torch.models.build import module_keys
 
     cfg = config_from_path(config) if config else Config()
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
@@ -293,11 +291,7 @@ def load_synthesizer(config: Optional[str], ckpt: Optional[str] = None, device: 
     state_dict, sigma_data = None, cfg.model_params.diffusion.dist.sigma_data
     if ckpt:
         payload = torch.load(ckpt, map_location="cpu", weights_only=True)
-        net = payload["net"]
-        missing = [k for k in module_keys(cfg) if k not in net]
-        if missing:
-            raise RuntimeError(f"{ckpt} has no weights for {missing}")
-        state_dict = {f"{mod}.{k}": v for mod in module_keys(cfg) for k, v in net[mod].items()}
+        state_dict = state_dict_from_reference(payload["net"], cfg)
         sigma_data = float(payload.get("sigma_data", sigma_data))
     return Synthesizer(cfg, state_dict=state_dict, device=device, sigma_data=sigma_data,
                        decoder_dtype=decoder_dtype)
@@ -309,7 +303,8 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", default="configs/config.yml")
     ap.add_argument("--ckpt", default=None,
-                    help='torch file {"net": {module: state_dict}} in the port\'s layout')
+                    help='StyleTTS 2 checkpoint {"net": {module: state_dict}}: the reference\'s '
+                         '.pth or a file of the port\'s trainers')
     ap.add_argument("--voices", default=None, help="directory of reference WAVs -> named voices")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8760)
@@ -333,6 +328,9 @@ def make_server(args) -> TTSServer:
 
 
 def main(argv=None):
+    import logging
+
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
     args = parse_args(argv)
     server = make_server(args)
     print(f"serving on http://{args.host}:{args.port} (max_batch={args.max_batch}, "

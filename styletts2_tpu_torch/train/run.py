@@ -26,9 +26,15 @@ stage 2 or finetuning the estimated sigma_data is written into the config
 copy in `log_dir`: a config file given by path is copied there, a Config
 object written there as JSON (a YAML subset) to `config.yml`. With
 STYLETTS2_DEBUG_NAN=1 the loop stops at the first non-finite metric and
-names the non-finite parameters. WavLM and PL-BERT stay at random init: the
-port reads neither the Hugging Face hub's WavLM nor a PL-BERT checkpoint,
-as the JAX `run.py` falls back when they are missing.
+names the non-finite parameters. Stages 2 and finetuning take PL-BERT from
+the newest `step_N.t7` in `PLBERT_dir` (the largest N) where there is one.
+WavLM stays at random init: the port reads no Hugging Face weights, as the
+JAX `run.py` falls back when they are missing. After each epoch's
+validation the trainer's `eval_artifacts` of the first validation batch
+are written (`MetricsWriter.audio`, `.attention`): reconstructions and their
+ground truth, the first sample's attention in stage 1, and from
+`joint_epoch` a fully sampled utterance; a failure there is logged and
+training carries on.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import numpy as np
 import torch
 
 from styletts2_tpu_torch.config import Config, config_from_path
+from styletts2_tpu_torch.convert import state_dict_from_reference
 from styletts2_tpu_torch.data.meldataset import build_dataloader
 from styletts2_tpu_torch.models.build import build_training_models
 from styletts2_tpu_torch.observability import MetricsWriter, get_logger
@@ -81,13 +88,37 @@ def _load_pretrained(models, cfg: Config, logger) -> None:
             logger.warning(f"could not load {key} from {path}: {type(e).__name__}: {e}")
 
 
+def _load_plbert(models, cfg: Config, logger) -> None:
+    """PL-BERT's pretrained weights (the reference's Utils/PLBERT/step_N.t7):
+    the newest file by its step number N, its `net` without the `module.`
+    and then the `encoder.` prefixes, read as a checkpoint's `bert`
+    (`convert.state_dict_from_reference`: the pooler and the pretraining
+    heads unread)."""
+    d = cfg.PLBERT_dir
+    steps = [(int(m.group(1)), name) for name in (os.listdir(d) if d and os.path.isdir(d) else ())
+             if (m := re.match(r"step_(\d+)", name))]
+    if not steps:
+        logger.info(f"PL-BERT at random init: no step_* file in {d!r}")
+        return
+    path = os.path.join(d, max(steps)[1])
+    try:
+        net = torch.load(path, map_location="cpu", weights_only=True)["net"]
+        net = {k[7:] if k.startswith("module.") else k: v for k, v in net.items()}
+        net = {k[8:] if k.startswith("encoder.") else k: v for k, v in net.items()}
+        sd = state_dict_from_reference({"bert": net}, cfg, keys=("bert",))
+        models["bert"].load_state_dict({k[len("bert."):]: v for k, v in sd.items()})
+        logger.info(f"loaded PL-BERT from {path}")
+    except (OSError, RuntimeError, KeyError) as e:
+        logger.warning(f"could not load PL-BERT from {path}: {type(e).__name__}: {e}")
+
+
 def setup(cfg: Config, device, logger, stage: str = "first"):
     torch.manual_seed(0)  # dropout's draws
     models = build_training_models(cfg, torch.Generator().manual_seed(0), stage)
     _load_pretrained(models, cfg, logger)
     logger.info("WavLM at random init: the port reads no Hugging Face weights")
     if stage != "first":
-        logger.info("PL-BERT at random init: the port reads no PL-BERT checkpoint")
+        _load_plbert(models, cfg, logger)
     models.to(device)
     state = TrainState(models, build_optimizers(cfg, models, stage2=stage != "first"))
     if stage != "first":
@@ -157,6 +188,7 @@ def run_stage(stage: str, config: Union[Config, str], max_steps: Optional[int] =
                 writer.scalars({f"eval/{k}": v for k, v in agg.items()}, state.step)
                 logger.info(f"epoch {epoch}: validation "
                             + " ".join(f"{k} {v:.4f}" for k, v in agg.items()))
+            write_eval_artifacts(stage, cfg, trainer, val_loader, writer, epoch, rng, logger)
             state.epoch = epoch + 1
             if state.epoch % cfg.save_freq == 0:
                 saver.save(os.path.join(log_dir, f"{prefix}{state.epoch:05d}.pth"), state)
@@ -173,6 +205,26 @@ def run_stage(stage: str, config: Union[Config, str], max_steps: Optional[int] =
         saver.close()
         writer.close()
     return state
+
+
+def write_eval_artifacts(stage: str, cfg: Config, trainer, val_loader, writer: MetricsWriter,
+                         epoch: int, rng: np.random.Generator, logger) -> None:
+    """The epoch's eval artifacts of the first validation batch (the
+    trainer's `eval_artifacts`; stage 2 and finetuning sample from
+    `joint_epoch` on), written as step epoch + 1. A failure is logged with
+    its traceback and training carries on."""
+    try:
+        batch = next(iter(val_loader), None)
+        if batch is None:
+            return
+        art = (trainer.eval_artifacts(batch, rng) if stage == "first" else
+               trainer.eval_artifacts(batch, rng, sample=epoch >= cfg.loss_params.joint_epoch))
+        for tag, wav in (art or {}).get("audio", {}).items():
+            writer.audio(f"eval/{tag}", wav, epoch + 1)
+        if art and "attn" in art:
+            writer.attention(art["attn"], epoch + 1)
+    except Exception as e:  # the artifacts must never stop training
+        logger.warning(f"eval artifacts failed: {type(e).__name__}: {e}", exc_info=True)
 
 
 def start(stage: str, cfg: Config, state: TrainState, logger) -> None:

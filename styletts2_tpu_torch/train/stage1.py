@@ -195,17 +195,44 @@ class Stage1Trainer:
         self.state.step += 1
         return {k: float(v.detach()) for k, v in metrics.items()}
 
-    @torch.no_grad()
-    def validate(self, batch: Batch, rng: np.random.Generator) -> Optional[Dict[str, float]]:
-        """The validation mel loss: eval mode, the mono path, the style of the
-        same clip."""
+    def _eval_recon(self, batch: Batch, rng: np.random.Generator, seed: Optional[int] = None):
+        """The eval-mode forward of validation and the artifacts: the mono
+        path, the style of the same clip, clip starts from `rng`, the draws
+        from `seed` (else a seed drawn from `rng`); None for a batch too
+        short to clip."""
         clip_len = clip_length(self.cfg, batch.mel_lengths)
         if clip_len is None:
             return None
         half = batch.mel_lengths // 2
         starts = rng.integers(0, np.maximum(half - clip_len, 1)).astype(np.int64)
-        gen = torch.Generator(self.device).manual_seed(int(rng.integers(0, 2 ** 31)))
+        seed = int(rng.integers(0, 2 ** 31)) if seed is None else seed
         self._modes(False, ())
-        y_rec, wav_clip, _ = self.forward_recon(*self._tensors(batch), starts, starts, clip_len,
-                                                True, gen)
+        return self.forward_recon(*self._tensors(batch), starts, starts, clip_len, True,
+                                  torch.Generator(self.device).manual_seed(seed))
+
+    @torch.no_grad()
+    def validate(self, batch: Batch, rng: np.random.Generator) -> Optional[Dict[str, float]]:
+        """The validation mel loss of `_eval_recon`."""
+        r = self._eval_recon(batch, rng)
+        if r is None:
+            return None
+        y_rec, wav_clip, _ = r
         return {"mel": float(L.multires_stft_loss(y_rec, wav_clip))}
+
+    @torch.no_grad()
+    def eval_artifacts(self, batch: Batch, rng: np.random.Generator) -> Optional[dict]:
+        """An epoch's eval artifacts, after the JAX trainer's: `_eval_recon`'s
+        reconstructions of the first 3 samples and their ground-truth clips,
+        {"audio": {"y_rec_b" / "gt_b": wave}}, and the first sample's soft
+        attention over its valid text x mel-half region, "attn"; the
+        decoder's draws from seed 0. None for a batch too short to clip."""
+        r = self._eval_recon(batch, rng, seed=0)
+        if r is None:
+            return None
+        y_rec, wav_clip, aux = r
+        audio = {}
+        for b in range(min(3, len(y_rec))):
+            audio[f"y_rec_{b}"] = y_rec[b].float().cpu().numpy()
+            audio[f"gt_{b}"] = wav_clip[b].cpu().numpy()
+        attn = aux["s2s_attn"][0, : int(batch.input_lengths[0]), : int(batch.mel_lengths[0]) // 2]
+        return {"audio": audio, "attn": attn.cpu().numpy()}

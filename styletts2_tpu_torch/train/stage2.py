@@ -68,6 +68,9 @@ from styletts2_tpu_torch.ops.stft import log_norm, preprocess_mel
 from styletts2_tpu_torch.train.mp import casts_once, enabled, run
 from styletts2_tpu_torch.train.stage1 import D_KEYS, HOP, aligner_pass, clip_length, clip_slice
 from styletts2_tpu_torch.train.state import TrainState, drop_bias_hh_grads, step_modules
+from styletts2_tpu_torch.utils import duration_to_alignment
+
+SAMPLES_PER_FRAME = 2 * HOP  # a predictor frame is two mel frames
 
 SLM_KEYS = ("bert_encoder", "bert", "predictor", "diffusion")
 STYLE_KEYS = ("predictor_encoder", "style_encoder")
@@ -445,36 +448,105 @@ class Stage2Trainer:
         return {k: float(v.detach() if torch.is_tensor(v) else v) for k, v in metrics.items()}
 
     # ------------------------------------------------------------------
+    def _eval_recon(self, batch: Batch, starts, clip_len: int, generator: torch.Generator):
+        """The eval-mode reconstruction of validation and the artifacts: the
+        monotonic path, predicted F0 / energy, the styles of the same clip.
+        Returns the reconstruction, its target clip and what validation
+        scores."""
+        m = self.models
+        self._modes(False)
+        t = self._tensors(batch)
+        tokens, lengths, mel_lengths = t["tokens"], t["input_lengths"], t["mel_lengths"]
+        mels = preprocess_mel(t["waves"])
+        mels = mels[..., : (mels.shape[-1] // 2) * 2]
+        _, _, _, mono = aligner_pass(m["text_aligner"], mels, mel_lengths, tokens, lengths,
+                                     generator)
+        asr = m["text_encoder"](tokens, lengths) @ mono
+        s_dur_full = m["predictor_encoder"](mels, lengths=mel_lengths)
+        _, d_en = self._bert(tokens, lengths)
+        dur_logits, p_seq = m["predictor"](d_en, s_dur_full, lengths, mono)
+        gt = clip_slice(mels, [2 * s for s in starts], 2 * clip_len)
+        wav_clip = clip_slice(t["waves"], [2 * HOP * s for s in starts], clip_len * 2 * HOP)
+        f0_fake, n_fake = m["predictor"].F0Ntrain(clip_slice(p_seq, starts, clip_len),
+                                                  m["predictor_encoder"](gt))
+        y_rec = m["decoder"](clip_slice(asr, starts, clip_len), f0_fake, n_fake,
+                             m["style_encoder"](gt), generator)
+        return {"y_rec": y_rec, "wav_clip": wav_clip, "dur_logits": dur_logits,
+                "d_gt": mono.sum(dim=-1), "lengths": lengths, "f0_fake": f0_fake,
+                "f0_real": m["pitch_extractor"](gt)[0]}
+
     @torch.no_grad()
     def validate(self, batch: Batch, rng: np.random.Generator) -> Optional[Dict[str, float]]:
-        """The validation mel, duration and F0 losses: eval mode, the
-        monotonic path, predicted F0 / energy, the styles of the same clip."""
-        m = self.models
+        """The validation mel, duration and F0 losses of `_eval_recon`."""
         clip_len = clip_length(self.cfg, batch.mel_lengths)
         if clip_len is None:
             return None
         half = batch.mel_lengths // 2
         starts = rng.integers(0, np.maximum(half - clip_len, 1)).astype(np.int64)
         gen = torch.Generator(self.device).manual_seed(int(rng.integers(0, 2 ** 31)))
+        r = self._eval_recon(batch, starts, clip_len, gen)
+        return {"mel": float(L.multires_stft_loss(r["y_rec"], r["wav_clip"])),
+                "dur": float(L.duration_l1_loss(torch.sigmoid(r["dur_logits"]).sum(dim=-1),
+                                                r["d_gt"], r["lengths"])),
+                "F0": float(L.smooth_l1(r["f0_real"], r["f0_fake"]) / 10.0)}
+
+    @torch.no_grad()
+    def eval_artifacts(self, batch: Batch, rng: np.random.Generator,
+                       sample: bool = False) -> Optional[dict]:
+        """An epoch's eval audio, {"audio": {tag: wave}}, after the JAX
+        trainer's. Without `sample` (before joint_epoch): the validation
+        reconstructions of the first 3 samples ("y_rec_b") and their target
+        clips ("gt_b"); None for a batch too short to clip. With it: the
+        full synthesis path on the first sample, "sampled_0" beside its
+        utterance "gt_0": 5 ADPM2 steps at the state's sigma_data from
+        PL-BERT (and, multispeaker, the utterance's own styles), rounded
+        durations, a decode padded to a 100-frame bucket and trimmed to the
+        predicted frames. The draws come from a seed drawn from `rng`."""
+        gen = torch.Generator(self.device).manual_seed(int(rng.integers(0, 2 ** 31)))
+        if not sample:
+            clip_len = clip_length(self.cfg, batch.mel_lengths)
+            if clip_len is None:
+                return None
+            half = batch.mel_lengths // 2
+            starts = rng.integers(0, np.maximum(half - clip_len, 1)).astype(np.int64)
+            r = self._eval_recon(batch, starts, clip_len, gen)
+            audio = {}
+            for b in range(min(3, len(r["y_rec"]))):
+                audio[f"y_rec_{b}"] = r["y_rec"][b].float().cpu().numpy()
+                audio[f"gt_{b}"] = r["wav_clip"][b].cpu().numpy()
+            return {"audio": audio}
+        wav, total = self._sample_utterance(batch, gen)
+        return {"audio": {"sampled_0": wav[: total * SAMPLES_PER_FRAME],
+                          "gt_0": np.asarray(batch.waves[0][: int(batch.wave_lengths[0])])}}
+
+    def _sample_utterance(self, batch: Batch, generator: torch.Generator):
+        """The first sample's text synthesised with a sampled style: (the
+        decoded wave of the bucketed frames, the predicted frame total)."""
+        m, sd = self.models, self.cfg.model_params.style_dim
         self._modes(False)
         t = self._tensors(batch)
-        tokens, lengths, mel_lengths = t["tokens"], t["input_lengths"], t["mel_lengths"]
-        mels = preprocess_mel(t["waves"])
-        mels = mels[..., : (mels.shape[-1] // 2) * 2]
-        _, _, _, mono = aligner_pass(m["text_aligner"], mels, mel_lengths, tokens, lengths, gen)
-        asr = m["text_encoder"](tokens, lengths) @ mono
-        d_gt = mono.sum(dim=-1)
-        s_dur_full = m["predictor_encoder"](mels, lengths=mel_lengths)
-        _, d_en = self._bert(tokens, lengths)
-        dur_logits, p_seq = m["predictor"](d_en, s_dur_full, lengths, mono)
-        gt = clip_slice(mels, [2 * s for s in starts], 2 * clip_len)
-        wav_clip = clip_slice(t["waves"], [2 * HOP * s for s in starts], clip_len * 2 * HOP)
-        f0_real = m["pitch_extractor"](gt)[0]
-        f0_fake, n_fake = m["predictor"].F0Ntrain(clip_slice(p_seq, starts, clip_len),
-                                                  m["predictor_encoder"](gt))
-        y_rec = m["decoder"](clip_slice(asr, starts, clip_len), f0_fake, n_fake,
-                             m["style_encoder"](gt), gen)
-        return {"mel": float(L.multires_stft_loss(y_rec, wav_clip)),
-                "dur": float(L.duration_l1_loss(torch.sigmoid(dur_logits).sum(dim=-1), d_gt,
-                                                lengths)),
-                "F0": float(L.smooth_l1(f0_real, f0_fake) / 10.0)}
+        tokens, lengths = t["tokens"][:1], t["input_lengths"][:1]
+        bert_dur, d_en = self._bert(tokens, lengths)
+        feats = None
+        if self.multispeaker:
+            mels = preprocess_mel(t["waves"][:1])
+            feats = torch.cat([m[k](mels, lengths=t["mel_lengths"][:1])
+                               for k in ("style_encoder", "predictor_encoder")], dim=-1)
+
+        def net(x, c_noise):
+            return m["diffusion"](x, c_noise, bert_dur, features=feats, embedding_lengths=lengths)
+
+        noise = torch.randn((1, 1, 2 * sd), generator=generator, device=tokens.device)
+        s_pred = sample_adpm2(make_denoise_fn(net, self.state.sigma_data), noise, 5,
+                              generator)[:, 0]
+        ref, s = s_pred[:, :sd], s_pred[:, sd:]
+        d = m["predictor"].encode_texts(d_en, s, lengths)
+        dur = torch.sigmoid(m["predictor"].duration(d, lengths)).sum(dim=-1)
+        valid = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < lengths[:, None]
+        pred_dur = torch.where(valid, torch.clamp(torch.round(dur), min=1.0), 0.0).to(torch.int64)
+        total = int(pred_dur.sum())
+        aln = duration_to_alignment(pred_dur, max(100, -(-total // 100) * 100))
+        f0, n = m["predictor"].F0Ntrain(d.transpose(1, 2) @ aln, s)
+        asr = m["text_encoder"](tokens, lengths) @ aln
+        wav = m["decoder"](asr, f0, n, ref, generator)
+        return wav[0].float().cpu().numpy(), total

@@ -1,6 +1,6 @@
-"""Alignment expansion from integer durations, WAV reading and resampling
-for the server's voice table (numpy, `styletts2_tpu/utils.py`), and the
-entry points' precision setting."""
+"""Alignment expansion from integer durations, WAV reading and writing and
+resampling (numpy, `styletts2_tpu/utils.py`), and the entry points'
+precision setting."""
 
 from __future__ import annotations
 
@@ -48,6 +48,28 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     if ch > 1:
         data = data.reshape(-1, ch)[:, 0]
     return data, sr
+
+
+def write_wav(path, data: np.ndarray, sr: int) -> None:
+    """Float32 [-1, 1] mono audio -> a 16-bit PCM WAV at `path` (a file name
+    or a binary file object)."""
+    pcm = (np.clip(np.asarray(data, dtype=np.float32), -1.0, 1.0) * 32767.0).astype(np.int16)
+    with _wave.open(path, "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(pcm.tobytes())
+
+
+def resample_linear(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    """Linear interpolation to round(len(x) * sr_out / sr_in) samples: the
+    demo's cheap resampler for a reference voice (the data path and the
+    server use `resample_sinc`)."""
+    if sr_in == sr_out:
+        return x
+    n_out = int(round(len(x) * sr_out / sr_in))
+    t = np.linspace(0.0, len(x) - 1.0, n_out)
+    return np.interp(t, np.arange(len(x)), x).astype(np.float32)
 
 
 def resample_sinc(x: np.ndarray, sr_in: int, sr_out: int, zeros: int = 24,

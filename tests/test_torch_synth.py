@@ -134,6 +134,29 @@ def test_last_token_pad_follows_the_option(setup):
     np.testing.assert_array_equal(trimmed.wav, padded.wav[:-7])
 
 
+def test_bucketed_inference_matches_exact_length(setup, monkeypatch):
+    """Padding the text to its 64-token bucket changes nothing (the LSTMs and
+    the denoiser mask the padded tokens): a bucketed run equals an
+    exact-length one, as the JAX package's tests/test_inference.py holds its
+    Synthesizer. The frame bucket is 1 in both."""
+    from styletts2_tpu_torch import inference
+
+    jcfg, params = setup
+    psyn = inference.Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params, port_cfg(jcfg)),
+                                 device="cpu")
+    noise = np.random.default_rng(3).standard_normal(
+        (1, 1, 2 * jcfg.model_params.style_dim)).astype(np.float32)
+    kw = dict(noise=noise, diffusion_steps=3, seed=5, speed=4.0)
+    monkeypatch.setattr(inference, "FRAME_BUCKET", 1)
+    wav_b, s_b = psyn.inference(TEXT, **kw)
+    monkeypatch.setattr(inference, "TEXT_BUCKET", 1)
+    wav_e, s_e = psyn.inference(TEXT, **kw)
+    np.testing.assert_allclose(s_b, s_e, atol=2e-5)
+    assert wav_e.shape == wav_b.shape
+    denom = np.abs(wav_e).max() + 1e-6
+    np.testing.assert_allclose(wav_b / denom, wav_e / denom, atol=1e-3)
+
+
 def _run(code, cwd):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"  # beside the suite's other workers
@@ -142,13 +165,14 @@ def _run(code, cwd):
 
 
 def test_port_imports_no_jax():
-    """Importing the port, its server, its trainers (with `train/mp.py`) and
-    `eval.py`, and running a tiny single-speaker and a tiny multispeaker CPU
+    """Importing the port, its server, its demo, its trainers (with
+    `train/mp.py`) and `eval.py`, and running a tiny single-speaker and a tiny multispeaker CPU
     synthesis, each with the f32 and the bf16 decoder, loads neither JAX,
     flax, PyYAML, transformers nor the JAX package."""
     code = """
 import sys
 import numpy as np
+import styletts2_tpu_torch.demo
 import styletts2_tpu_torch.eval
 import styletts2_tpu_torch.serve
 import styletts2_tpu_torch.train.run
