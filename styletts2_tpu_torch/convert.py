@@ -393,7 +393,7 @@ def state_dict_from_jax(params: Dict[str, Any], cfg: Config,
 def state_dict_from_reference(net: Mapping[str, Mapping[str, torch.Tensor]], cfg: Config,
                               keys: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
     """A checkpoint's `net` ({module: state_dict}) -> the port's state_dict
-    of the modules `keys` (by default `cfg`'s synthesis modules), the
+    of the synthesis modules `keys` (by default all of `cfg`'s), the
     counterpart of the JAX package's `strip_module_prefix` and
     `convert_styletts2_checkpoint`. Every key loses a leading `module.`; the
     diffusion module is its `unet.` weights without the prefix where the

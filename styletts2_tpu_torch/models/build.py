@@ -156,12 +156,13 @@ def build_training_models(cfg: Config, generator: Optional[torch.Generator] = No
 
 
 def parameter_names(cfg: Config, keys: Sequence[str]) -> Dict[str, List[str]]:
-    """{module: its state_dict names} for the modules `keys` names, read off
-    modules built on the meta device (no memory, no weights): synthesis's
-    where they suffice, else the stage-2 trainer's."""
+    """{module: its state_dict names} for the synthesis modules `keys` names,
+    read off modules built on the meta device (no memory, no weights)."""
+    unknown = sorted(set(keys) - set(module_keys(cfg)))
+    if unknown:
+        raise ValueError(f"not a synthesis module of this config: {unknown}")
     with torch.device("meta"):
-        models = (build_models(cfg) if set(keys) <= set(module_keys(cfg))
-                  else build_training_models(cfg, stage="second"))
+        models = build_models(cfg)
     return {k: list(models[k].state_dict()) for k in keys}
 
 

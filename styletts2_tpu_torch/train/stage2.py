@@ -521,7 +521,9 @@ class Stage2Trainer:
 
     def _sample_utterance(self, batch: Batch, generator: torch.Generator):
         """The first sample's text synthesised with a sampled style: (the
-        decoded wave of the bucketed frames, the predicted frame total)."""
+        decoded wave of the bucketed frames, the predicted frame total).
+        The stages of `Synthesizer._run` as the JAX trainer runs them:
+        without HiFi-GAN's one-frame shift and the alpha/beta style mix."""
         m, sd = self.models, self.cfg.model_params.style_dim
         self._modes(False)
         t = self._tensors(batch)

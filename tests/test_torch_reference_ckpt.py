@@ -147,6 +147,15 @@ def test_reader_names_what_the_file_lacks():
         state_dict_from_reference(net, cfg)
 
 
+def test_reader_reads_only_synthesis_modules():
+    """A training-only module (the WavLM discriminator) is refused by name."""
+    cfg = _tiny()
+    net = reference_net(build_models(cfg, torch.Generator().manual_seed(2)).state_dict())
+    net["wd"] = {"module.out.weight": torch.zeros(1)}
+    with pytest.raises(ValueError, match=r"not a synthesis module.*'wd'"):
+        state_dict_from_reference(net, cfg, keys=("bert", "wd"))
+
+
 def test_serve_and_demo_read_a_reference_file(tmp_path, capsys):
     """`serve --ckpt` loads a multispeaker reference-layout file into the
     Synthesizer the CLI builds, with the same weights as the port's layout
