@@ -107,7 +107,33 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      port-layout Synthesizer's (host draws, the chaotic source parts
      zeroed); the diffusion sampler family on the card against the CPU with
      handed draws, within 1e-4
-Every number line carries the card's name and power limit. Then a JSON line
+ 18. remat (`remat_phase`): Config()'s stage-1 TMA step and stage-2 joint
+     step at full width, batch 16, f32, each from the same weights, batch
+     and draws with `remat_decoder` off and on: losses within 1e-5, every
+     optimizer step's gradients within 3e-2 (L2), K1 per differentiated
+     decoder run doubled by the recompute (48 -> 96) and K2 equal, 0
+     plain-version calls; both peaks and step times; then the joint step
+     with remat up the batch ladder (24, 32, ...) to the first batch that
+     does not fit, and one bf16 joint step with remat
+ 19. LibriTTS stage 2 (`libritts_stage2_phase`): `run_stage("second",
+     libritts_config())` with remat at full width from the port's own first
+     stage, 2 steps each before diffusion, with it and joint, checked as
+     phase 12's (96 K1 per HiFi-GAN decoder run, 192 per differentiated
+     one); a reduced-width multispeaker HiFi-GAN joint step card vs CPU as
+     phase 14's
+ 20. data-parallel (`ddp_wavlm_phase`): `python -m torch.distributed.run
+     --standalone --nproc_per_node 1` of `train.run first --max_steps 2`
+     (through this script's --train-child, which counts the launches) on
+     phase 10's fixture at full width: one NCCL rank whose losses equal an
+     unlaunched run's, its log naming the backend, K1 and K2 launched, 0
+     plain-version calls, its second step traced (STYLETTS2_TRACE_STEP).
+     One card: more ranks are shown by the CPU test (two gloo ranks)
+ 21. WavLM from a directory: a full-width Hugging Face layout (config.json,
+     model.safetensors, pytorch_model.bin) written from seeded weights and
+     read on the card by `convert.wavlm_from_hf`, its hidden states equal
+     to the module's; phase 20's runs load it ("loaded WavLM")
+Phase 3 and 9 also check and time K1 and K2 at LibriTTS stage 2's HiFi-GAN
+training shapes (f32). Every number line carries the card's name and power limit. Then a JSON line
 of the kernels (f32 and bf16 times) and, last, {"ok": true, "device": {...}}.
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero before printing a result.
@@ -115,8 +141,10 @@ exits non-zero before printing a result.
 
 import collections
 import copy
+import dataclasses
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -163,13 +191,21 @@ MAIN_SHAPES = [
     (8, 128, 24001),
 ]
 TRAIN_SHAPES = MAIN_SHAPES[-4:]
+# LibriTTS stage 2 (phase 19, f32): the HiFi-GAN Generator's stages at
+# batch 16 and libritts_config()'s clip of 120 mel-half frames (max_len 300:
+# a 240-frame F0 curve, 72000 samples), and the SLM pass's 8 clips of 200
+# (slmadv min_len 400: 120000 samples); (8, 256, 4000) is already above
+HIFIGAN_TRAIN_SHAPES = [(16, 256, 2400), (16, 128, 12000), (16, 64, 36000), (16, 32, 72000),
+                        (8, 128, 20000), (8, 64, 60000), (8, 32, 120000)]
 KERNEL_CASES = [(shape, dt) for dt in ("float32", "bfloat16") for shape in MAIN_SHAPES] + [
+    (shape, "float32") for shape in HIFIGAN_TRAIN_SHAPES] + [
     ((2, 256, 24), "float32"),  # tests/test_pallas.py cases
     ((3, 256, 128), "float32"),
     ((2, 256, 160), "bfloat16"),
     ((2, 100, 37), "float32"),  # odd T below 64
 ]
 BWD_CASES = [(shape, dt) for dt in ("float32", "bfloat16") for shape in TRAIN_SHAPES] + [
+    (shape, "float32") for shape in HIFIGAN_TRAIN_SHAPES] + [
     ((2, 100, 37), "float32"),  # an odd small shape
     ((2, 256, 160), "bfloat16"),
 ]
@@ -285,14 +321,28 @@ def _zero_sines(self, f0, generator=None):
     return torch.zeros(f0.shape[:2] + (self.dim,), device=f0.device), uv
 
 
-def _host_draws(fn, *args, **kwargs):
+def _noise_source(self, f0, generator=None):
+    """SineGen.forward with the harmonic sines zeroed and its noise kept.
+    With no noise the source is constant, and the AdaINs of the Generator's
+    noise branch normalise its rounding: then their dgamma and dbeta, which
+    the style encoder's gradient sums, move by a large share of their norm
+    under a 1e-7 change of the weights (tools/conditioning_torch.py)."""
+    uv = (f0.float() > self.voiced_threshold).float()
+    amp = uv * self.noise_std + (1.0 - uv) * self.sine_amp / 3.0
+    return amp * torch.randn(f0.shape[:2] + (self.dim,), device=f0.device), uv
+
+
+def _host_draws(fn, *args, zero_sines=False, noise_source=False, **kwargs):
     """`fn(*args, **kwargs)` with every random draw taken from one seeded CPU
     generator, so that two devices decode the same inputs, and the NSF
     source's chaotic parts zeroed (tests/torch_parity.py): the iSTFTNet
     source's STFT phase, atan2 of ~0-magnitude bins that flips under any
-    float reassociation, and the harmonic sines that HiFi-GAN takes raw,
-    whose phase reaches ~1e5 rad, where f32 rounding in another summation
-    order is O(1e-2) rad. A random-init decoder amplifies either to O(1)."""
+    float reassociation, and the harmonic sines that HiFi-GAN takes raw
+    (`fn` a HiFi-GAN Synthesizer's method, or `zero_sines`), whose phase
+    reaches ~1e5 rad, where f32 rounding in another summation order is
+    O(1e-2) rad. A random-init decoder amplifies either to O(1).
+    `noise_source`: the sines zeroed and the source's noise kept
+    (`_noise_source`)."""
     import styletts2_tpu_torch.models.decoder_istft as pdi
 
     host = torch.Generator().manual_seed(0)
@@ -307,8 +357,8 @@ def _host_draws(fn, *args, **kwargs):
         return mag, torch.zeros_like(phase)
 
     torch.rand, torch.randn, pdi.stft_magphase = draw(rand), draw(randn), zero_phase
-    hifigan = getattr(getattr(fn, "__self__", None), "hifigan", False)
-    pdi.SineGen.forward = _zero_sines if hifigan else sines
+    hifigan = zero_sines or getattr(getattr(fn, "__self__", None), "hifigan", False)
+    pdi.SineGen.forward = _noise_source if noise_source else _zero_sines if hifigan else sines
     try:
         return fn(*args, **kwargs)
     finally:
@@ -461,9 +511,9 @@ class _Artifacts:
     def k1(self):
         return sum(c["k1"] for c in self.calls)
 
-    def check(self, log_dir, tag, epochs, joint_epoch=None):
+    def check(self, log_dir, tag, epochs, joint_epoch=None, per_decode=CALLS_PER_DECODE):
         """Raise unless there was one call for each of the `epochs` the run
-        took and every one decoded once (48 K1 launches), returned finite
+        took and every one decoded once (`per_decode` K1 launches), returned finite
         arrays and left them as 24 kHz WAVs (and stage 1's attention as
         .npy) in `log_dir`, sampling exactly from `joint_epoch` on (stage
         2); print one line."""
@@ -476,7 +526,7 @@ class _Artifacts:
             want_tags = (["gt_0", "sampled_0"] if c["sample"] else
                          [f"{t}_{b}" for t in ("gt", "y_rec") for b in range(3)])
             sample = joint_epoch is not None and c["step"] - 1 >= joint_epoch
-            if c["k1"] != CALLS_PER_DECODE or not c["finite"] or c["tags"] != want_tags or \
+            if c["k1"] != per_decode or not c["finite"] or c["tags"] != want_tags or \
                     c["sample"] != sample or c["attn"] != (joint_epoch is None):
                 raise RuntimeError(f"[{tag}] eval artifacts: {c}")
             for t in c["tags"]:
@@ -490,7 +540,7 @@ class _Artifacts:
         print(f"[{tag}] eval artifacts at steps {[c['step'] for c in self.calls]} (sampled: "
               f"{[c['step'] for c in self.calls if c['sample']]}): finite, written to eval_audio/"
               + (" and eval_attn/" if joint_epoch is None else "")
-              + f", K1 {self.k1} ({CALLS_PER_DECODE} per call)", flush=True)
+              + f", K1 {self.k1} ({per_decode} per call)", flush=True)
 
 
 def _requests(op, syn, tag, smi, per_decode, trim, **kwargs):
@@ -660,7 +710,7 @@ def kernel_phase(op, dev, smi):
         line = (f"[3 kernel] {shape} {dt}, {_plan_text(plan, shape)}: max_abs_err {err:.3e} "
                 f"(tol {TOL[dt]:g}), repeat bit-equal")
         max_err[dt] = max(max_err[dt], err)
-        if (shape, dt) in KERNEL_CASES and shape[2] >= 4000:  # the main paths' shapes
+        if (shape, dt) in KERNEL_CASES and shape[2] >= 2400:  # the main paths' shapes
             iters = 100 if args[0].numel() < 10 ** 7 else 40
             nbytes = args[0].numel() * args[0].element_size()
             bound = bound_ms(shape, dt)
@@ -723,7 +773,7 @@ def backward_phase(op, dev, smi):
                 f"dx max abs err {float((got[0].float() - plain[0].float()).abs().max()):.3e} "
                 f"(tol {TOL[dt]:g} of each peak, and against autograd); repeat bit-equal")
         bwd_err[dt] = max(bwd_err[dt], float((got[0].float() - plain[0].float()).abs().max()))
-        if (shape, dt) in BWD_CASES and shape[2] >= 4000:  # the training shapes
+        if (shape, dt) in BWD_CASES and shape[2] >= 2400:  # the training shapes
             nbytes = 2 * args[0].numel() * args[0].element_size()
             bound = bound_ms(shape, dt, backward=True)
             fns = (op.adain_snake_bwd_ref, op.adain_snake_bwd)
@@ -803,13 +853,14 @@ def training_phase(op, build_dir, smi):
         evals = [json.loads(x) for x in (Path(cfg.log_dir) / "metrics.jsonl").read_text().splitlines()
                  if "eval/mel" in x]
     torch.cuda.empty_cache()
+    k1_step = CALLS_PER_STEP * (2 if cfg.remat_decoder else 1)  # the recompute under remat
     for i, st in enumerate(steps):
         m = st["metrics"]
         if m is None or not all(np.isfinite(v) for v in m.values()):
             raise RuntimeError(f"training step {i}: metrics {m}")
-        if (st["k1"], st["k2"]) != (CALLS_PER_STEP, CALLS_PER_STEP):
+        if (st["k1"], st["k2"]) != (k1_step, CALLS_PER_STEP):
             raise RuntimeError(f"training step {i}: {st['k1']} forward and {st['k2']} backward "
-                               f"kernel launches, not {CALLS_PER_STEP} each")
+                               f"kernel launches, not {k1_step} and {CALLS_PER_STEP}")
         phase = "TMA" if st["epoch"] >= cfg.loss_params.TMA_epoch else "pre-TMA"
         print(f"[10 training] step {i} (epoch {st['epoch']}, {phase}): {st['ms']:.1f} ms; launches "
               f"K1 {st['k1']} K2 {st['k2']}; " + " ".join(f"{k}={v:.4f}" for k, v in m.items())
@@ -818,7 +869,7 @@ def training_phase(op, build_dir, smi):
     tma = [st["ms"] for st in steps[:first_steps] if st["epoch"] >= cfg.loss_params.TMA_epoch]
     if len(pre) < 2 or len(tma) < 2 or first_epoch != 2:
         raise RuntimeError(f"training: {len(pre)} pre-TMA and {len(tma)} TMA steps, epoch {first_epoch}")
-    if tally.plain or train_k1 != CALLS_PER_STEP * len(steps) + CALLS_PER_DECODE * len(evals) + \
+    if tally.plain or train_k1 != k1_step * len(steps) + CALLS_PER_DECODE * len(evals) + \
             arts.k1 or train_k2 != CALLS_PER_STEP * len(steps):
         raise RuntimeError(f"training: {train_k1} forward / {train_k2} backward launches for "
                            f"{len(steps)} steps, {len(evals)} validations and {len(arts.calls)} "
@@ -890,18 +941,29 @@ def _moves(cfg, epoch, iters, finetune=False):
             "wd": joint_on and (iters + 1) % cfg.slmadv_params.iter == 0}
 
 
-def _stage2_launches(joint, decoder_trained, slm_sampled):
-    """(K1, K2) of a stage-2 step: 48 K1 per decoder run (y_rec_gt_pred,
-    y_rec, and when joint the SLM pass's y_pred); K2 per run that takes a
-    gradient (y_rec, y_pred): 48 where the noise branch takes one too, 36
-    where it does not. The noise branch (one AdaINResBlock1 per upsampling
-    stage, 12 launches) sees only the detached harmonic source, its own
-    weights and the style: it takes a gradient where the decoder is trained
-    or the style is (the SLM pass's sampled style), as in JAX's VJP."""
-    k2 = 48 if decoder_trained else 36
+def _stage2_launches(joint, decoder_trained, slm_sampled, remat=False, per_decode=CALLS_PER_DECODE):
+    """(K1, K2) of a stage-2 step: `per_decode` K1 per decoder run
+    (y_rec_gt_pred, y_rec, and when joint the SLM pass's y_pred: 48
+    iSTFTNet, 96 HiFi-GAN), twice that for each differentiated run (y_rec,
+    y_pred) under `remat` (the backward's recompute); K2 per differentiated
+    run: all of them where the noise branch takes a gradient too, less
+    that branch's quarter (one AdaINResBlock1 of four per upsampling stage)
+    where it does not. The noise branch sees only the detached harmonic
+    source, its own weights and the style: it takes a gradient where the
+    decoder is trained or the style is (the SLM pass's sampled style), as
+    in JAX's VJP."""
+    noise = per_decode // 4
+    k2 = per_decode - (0 if decoder_trained else noise)
+    trained = 1
     if joint:
-        k2 += 48 if slm_sampled else 36
-    return 48 * (3 if joint else 2), k2
+        k2 += per_decode - (0 if slm_sampled else noise)
+        trained += 1
+    return per_decode * ((3 if joint else 2) + (trained if remat else 0)), k2
+
+
+def _per_decode(cfg):
+    """K1 launches of one decoder run of `cfg`: 48 iSTFTNet, 96 HiFi-GAN."""
+    return CALLS_PER_HIFIGAN_DECODE if cfg.model_params.decoder.type == "hifigan" else CALLS_PER_DECODE
 
 
 def _f32_masters(state, tag):
@@ -932,6 +994,7 @@ def _stage2_run(op, stage, cfg, smi, tag, **kwargs):
     from styletts2_tpu_torch.train.stage2 import Stage2Trainer
 
     step_dtype = "bfloat16" if cfg.mixed_precision == "bf16" else "float32"
+    per_decode = _per_decode(cfg)
     tally = _Tally(op)
 
     steps, train_step, validate = [], Stage2Trainer.train_step, Stage2Trainer.validate
@@ -976,7 +1039,8 @@ def _stage2_run(op, stage, cfg, smi, tag, **kwargs):
         m, lp = st["metrics"], cfg.loss_params
         joint = st["epoch"] >= lp.joint_epoch
         phase = "joint" if joint else "diffusion" if st["epoch"] >= lp.diff_epoch else "pre-diffusion"
-        want = _stage2_launches(joint, joint or stage == "finetune", m and m.get("slm_sampled"))
+        want = _stage2_launches(joint, joint or stage == "finetune", m and m.get("slm_sampled"),
+                                cfg.remat_decoder, per_decode)
         expect = _moves(cfg, st["epoch"], st["iters"], stage == "finetune")
         print(f"[{tag}] step {i} (epoch {st['epoch']}, {phase}, batch {st['batch']}): {st['ms']:.1f} ms; "
               f"launches K1 {st['k1']} K2 {st['k2']}; moved {sorted(k for k, v in st['moved'].items() if v)}; "
@@ -990,11 +1054,12 @@ def _stage2_run(op, stage, cfg, smi, tag, **kwargs):
             raise RuntimeError(f"{tag} step {i}: slm_valid_frac {m['slm_valid_frac']}")
         if st["moved"] != expect:
             raise RuntimeError(f"{tag} step {i}: moved {st['moved']}, expected {expect}")
-    arts.check(cfg.log_dir, tag, sorted({st["epoch"] for st in steps}), cfg.loss_params.joint_epoch)
+    arts.check(cfg.log_dir, tag, sorted({st["epoch"] for st in steps}), cfg.loss_params.joint_epoch,
+               per_decode)
     val_f32 = tally.n["K1", "float32"] - sum(st["k1"] for st in steps if step_dtype == "float32")
-    if tally.plain or k1 != sum(st["k1"] for st in steps) + CALLS_PER_DECODE * n_val[0] + arts.k1 \
+    if tally.plain or k1 != sum(st["k1"] for st in steps) + per_decode * n_val[0] + arts.k1 \
             or k2 != sum(st["k2"] for st in steps) or \
-            val_f32 != CALLS_PER_DECODE * n_val[0] + arts.k1:
+            val_f32 != per_decode * n_val[0] + arts.k1:
         raise RuntimeError(f"{tag}: {k1} K1 / {k2} K2 launches for {len(steps)} steps, "
                            f"{n_val[0]} validation batches and {len(arts.calls)} eval artifacts, "
                            f"{tally.plain} plain calls")
@@ -1123,15 +1188,20 @@ def _stage2_losses_and_grads(models, cfg, device, batch, starts):
     return losses, out
 
 
-def stage2_reference_phase(dev):
-    """Phase 14: a joint stage-2 step at reduced width, the same weights on
-    the card and on the CPU."""
+def stage2_reference_case(libritts=False):
+    """Phase 14's reduced-width joint stage-2 step (19's with `libritts`:
+    multispeaker, HiFi-GAN): (config, seed-0 models on the CPU, batch, clip
+    starts)."""
     from styletts2_tpu_torch.config import Config
     from styletts2_tpu_torch.models.build import build_training_models
 
-    small = Config.from_dict(dict(SMALL, slmadv_params={"min_len": 80, "max_len": 120}))
-    cpu_models = build_training_models(small, torch.Generator().manual_seed(0), stage="second")
-    gpu_models = copy.deepcopy(cpu_models).to(dev)
+    small = dict(SMALL, slmadv_params={"min_len": 80, "max_len": 120})
+    if libritts:
+        small["model_params"] = dict(SMALL["model_params"], multispeaker=True, decoder=dict(
+            SMALL["model_params"]["decoder"], type="hifigan", upsample_rates=[10, 5, 3, 2],
+            upsample_kernel_sizes=[20, 10, 6, 4]))
+    small = Config.from_dict(small)
+    models = build_training_models(small, torch.Generator().manual_seed(0), stage="second")
     rng = np.random.default_rng(3)
     waves = (0.2 * rng.standard_normal((2, 48000))).astype(np.float32)
     batch = types.SimpleNamespace(
@@ -1139,12 +1209,24 @@ def stage2_reference_phase(dev):
         input_lengths=np.asarray([12, 9]), mel_lengths=np.asarray([160, 140]),
         ref_tokens=rng.integers(1, 178, (2, 10)).astype(np.int32), ref_lengths=np.asarray([10, 7]),
         ref_waves=waves, ref_wave_lengths=np.asarray([48000, 48000]))
-    starts = np.asarray([3, 5])
-    got_l, got_g = _host_draws(_stage2_losses_and_grads, gpu_models, small, dev, batch, starts)
-    want_l, want_g = _host_draws(_stage2_losses_and_grads, cpu_models, small, "cpu", batch, starts)
+    return small, models, batch, np.asarray([3, 5])
+
+
+def stage2_reference_phase(dev, tag="14 stage-2 reference", libritts=False):
+    """Phase 14 (19 with `libritts`, the HiFi-GAN source's harmonic sines
+    zeroed and its noise kept, `_noise_source`): `stage2_reference_case`'s
+    step, the same weights on the card and on the CPU, losses within 1e-4
+    and each module's gradient within GRAD_TOL (L2). The CPU step's own
+    conditioning: tools/conditioning_torch.py."""
+    small, cpu_models, batch, starts = stage2_reference_case(libritts)
+    gpu_models = copy.deepcopy(cpu_models).to(dev)
+    got_l, got_g = _host_draws(_stage2_losses_and_grads, gpu_models, small, dev, batch, starts,
+                               noise_source=libritts)
+    want_l, want_g = _host_draws(_stage2_losses_and_grads, cpu_models, small, "cpu", batch, starts,
+                                 noise_source=libritts)
     l_err = max(abs(got_l[k] - v) / abs(v) for k, v in want_l.items())
     g_err = {k: float((got_g[k] - v).norm() / v.norm()) for k, v in want_g.items()}
-    print("[14 stage-2 reference] joint step: losses " + " ".join(f"{k}={v:.5f}" for k, v in got_l.items())
+    print(f"[{tag}] joint step: losses " + " ".join(f"{k}={v:.5f}" for k, v in got_l.items())
           + f"; rel err {l_err:.2e} (tol 1e-4); gradient L2 rel err "
           + ", ".join(f"{k} {e:.2e}" for k, e in g_err.items()) + f" (tol {GRAD_TOL:g})", flush=True)
     if not (l_err < 1e-4 and max(g_err.values()) < GRAD_TOL):
@@ -1355,7 +1437,8 @@ def _stage1_run(op, cfg, smi, tag, **kwargs):
               + " ".join(f"{k}={v:.4f}" for k, v in (m or {}).items()) + f" [{smi}]", flush=True)
         if m is None or not all(np.isfinite(v) for v in m.values()):
             raise RuntimeError(f"{tag} step {i}: metrics {m}")
-        if (st["k1"], st["k2"]) != (CALLS_PER_STEP, CALLS_PER_STEP) or st["dtypes"] != {step_dtype}:
+        k1_step = CALLS_PER_STEP * (2 if cfg.remat_decoder else 1)  # the recompute under remat
+        if (st["k1"], st["k2"]) != (k1_step, CALLS_PER_STEP) or st["dtypes"] != {step_dtype}:
             raise RuntimeError(f"{tag} step {i}: K1 {st['k1']} K2 {st['k2']} in {st['dtypes']}")
     if tally.plain or not steps:
         raise RuntimeError(f"{tag}: {len(steps)} steps, {tally.plain} plain-version calls")
@@ -1365,7 +1448,8 @@ def _stage1_run(op, cfg, smi, tag, **kwargs):
 def _tracks(want, got, tag):
     """Raise unless every loss of the bf16 step `got` is within STEP_TOL of
     the f32 step's `want` (relative, floored at 1e-3); print them."""
-    rel = {k: abs(got[k] - v) / max(abs(v), 1e-3) for k, v in want.items() if k != "step_sec"}
+    rel = {k: abs(got[k] - v) / max(abs(v), 1e-3) for k, v in want.items()
+           if not k.startswith("step_sec")}  # the step meters: times, not losses
     print(f"[{tag}] first step, bf16 vs f32 from the same weights and draws: rel err "
           + ", ".join(f"{k} {e:.2e}" for k, e in rel.items()) + f" (tol {STEP_TOL})", flush=True)
     if max(rel.values()) > STEP_TOL:
@@ -1641,6 +1725,412 @@ def reference_phase(op, serve, dev, build_dir, smi):
     return launches
 
 
+REMAT_LADDER = (24, 32, 40, 48, 56, 64)  # phase 18 climbs these with remat until one does not fit
+LOSS_TOL = 1e-5  # phases 18 and 20: losses against the reference run's, relative
+WAVLM_TOL = 1e-5  # phase 21: the read WavLM's hidden states against the module's
+
+
+def _spied_step(op, trainer_cls, cfg, models, init, batch, epoch, remat, record=False,
+                follow=None):
+    """One `train_step` of `trainer_cls` at `epoch` from the weights `init`
+    (a host state_dict) with the decoder's Generator checkpointed or not,
+    fresh optimizers, the same seeds: {"metrics", "grads" (per optimizer
+    step, {module: its flattened gradient on the host}), "k1", "k2",
+    "runs" (decoder runs, differentiated decoder runs), "dtypes", "ms",
+    "peak"}; with `record` also "after" (per optimizer step, {module: its
+    parameters after it, on the host}). With `follow`, a recorded run's
+    "after", each optimizer step's modules are set to that run's weights
+    after it, so that every step's gradient is taken from the same weights
+    as that run's."""
+    from styletts2_tpu_torch.train import stage1, stage2
+    from styletts2_tpu_torch.train.state import TrainState, build_optimizers
+
+    models.load_state_dict(init)
+    models["decoder"].generator.remat = remat
+    cfg = copy.deepcopy(cfg)
+    cfg.remat_decoder = remat
+    module = stage1 if trainer_cls is stage1.Stage1Trainer else stage2
+    state = TrainState(models, build_optimizers(cfg, models, stage2=module is stage2), sigma_data=0.2)
+    out = {"grads": [], "runs": [0, 0], "after": []}
+    step_modules = module.step_modules
+
+    def spy(ms, opts, keys):
+        out["grads"].append({k: torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                                           .detach().flatten() for p in ms[k].parameters()]).cpu()
+                             for k in keys})
+        step_modules(ms, opts, keys)
+        if record:
+            out["after"].append({k: [p.detach().cpu() for p in ms[k].parameters()] for k in keys})
+        if follow is not None:
+            with torch.no_grad():
+                for k in keys:
+                    for p, q in zip(ms[k].parameters(), follow[len(out["grads"]) - 1][k]):
+                        p.copy_(q)
+
+    def decoder_run(mod, args):
+        out["runs"][0] += 1
+        out["runs"][1] += torch.is_grad_enabled()
+
+    hook = models["decoder"].register_forward_pre_hook(decoder_run)
+    module.step_modules, tally = spy, _Tally(op)
+    k1, k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with tally:
+            torch.manual_seed(0)
+            t0 = time.perf_counter()
+            out["metrics"] = trainer_cls(cfg, state, "cuda").train_step(
+                batch, epoch, 0, np.random.default_rng(3))  # ends in a host sync (the metrics)
+            out["ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        module.step_modules = step_modules
+        hook.remove()
+        for m in models.values():
+            m.zero_grad(set_to_none=True)
+        del state
+    out["peak"] = torch.cuda.max_memory_allocated()
+    out.update(k1=op.adain_snake.launches - k1, k2=op.adain_snake.bwd_launches - k2,
+               dtypes={dt for (key, dt) in tally.n if key != "plain"}, plain=tally.plain)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _fixture_batch(data, size):
+    """The first training batch of `size` from the fixture `data`."""
+    from styletts2_tpu_torch.data.meldataset import build_dataloader
+
+    loader = build_dataloader(data.train_data, data.root_path, ood_path=data.OOD_data,
+                              min_length=data.min_length, batch_size=size)
+    loader.prefetch = 0
+    return next(iter(loader))
+
+
+def remat_phase(op, build_dir, smi):
+    """Phase 18: `remat_decoder` at full width. Config()'s stage-1 TMA step
+    and stage-2 joint step (wd stepped) at batch 16, f32, each from the same
+    weights, batch and draws with the Generator checkpointed and not: the
+    logged losses within LOSS_TOL and every optimizer step's per-module
+    gradient within GRAD_TOL (L2), each step of the remat run taken from
+    the off-run's weights (a gradient within rounding of 0 moves a weight
+    by Adam's +-lr either way, and the SLM pass amplifies such moves: 3.75e-2
+    on the card when the runs diverge freely); K1 per differentiated
+    decoder run twice the off-run's (the backward's recompute) and K2
+    equal, 0 plain-version calls; both peaks and step times, from a pair
+    of free runs after the first. Then the joint step with remat at
+    the batches of REMAT_LADDER until one does not fit, and one bf16 joint
+    step with remat. Returns (K1, K2) launches."""
+    from styletts2_tpu_torch.config import Config
+    from styletts2_tpu_torch.models.build import build_training_models
+    from styletts2_tpu_torch.train.stage1 import Stage1Trainer
+    from styletts2_tpu_torch.train.stage2 import Stage2Trainer
+
+    start = time.perf_counter()
+    launches = [0, 0]
+    with tempfile.TemporaryDirectory(dir=build_dir) as tdir:
+        data = training_fixture(Path(tdir) / "data", n=max(REMAT_LADDER))
+        cfg = Config()
+        cfg.data_params, cfg.slmadv_params.iter = data, 1
+        models = build_training_models(cfg, torch.Generator().manual_seed(0), "second").cuda()
+        init = {k: v.detach().cpu().clone() for k, v in models.state_dict().items()}
+        batch = _fixture_batch(data, 16)
+        cases = (("stage-1 TMA", Stage1Trainer, cfg.loss_params.TMA_epoch),
+                 ("stage-2 joint", Stage2Trainer, cfg.loss_params.joint_epoch))
+        for name, trainer_cls, epoch in cases:
+            # the reference first (also this process's warm-up for the case), then off and on,
+            # timed, then on again, each optimizer step from the reference's weights
+            def step(remat, **kw):
+                return _spied_step(op, trainer_cls, cfg, models, init, batch, epoch, remat, **kw)
+
+            ref = step(False, record=True)
+            off, on = step(False), step(True)
+            same = step(True, follow=ref.pop("after"))
+            for r in (off, on):
+                launches[0] += r["k1"]
+                launches[1] += r["k2"]
+            rel = {k: abs(same["metrics"][k] - v) / max(abs(v), 1e-6)
+                   for k, v in ref["metrics"].items()}
+
+            def grad_err(x, y):
+                return [max(float((a[k] - b[k]).norm() / max(float(b[k].norm()), 1e-30)) for k in b)
+                        for a, b in zip(x["grads"], y["grads"])]
+
+            g_err = grad_err(same, ref)
+            runs, trained = off["runs"]
+            print(f"[18 remat] {name}, batch 16, f32: losses rel err {max(rel.values()):.2e} (tol "
+                  f"{LOSS_TOL:g}); gradient L2 rel err per optimizer step "
+                  f"{', '.join(f'{e:.2e}' for e in g_err)} (tol {GRAD_TOL:g}; free runs "
+                  f"{', '.join(f'{e:.2e}' for e in grad_err(on, off))}); K1 {off['k1']} -> "
+                  f"{on['k1']} for {runs} decoder runs, {trained} differentiated; K2 {off['k2']} "
+                  f"-> {on['k2']}; peak {off['peak'] / 2 ** 30:.2f} -> {on['peak'] / 2 ** 30:.2f} "
+                  f"GiB; step {off['ms']:.1f} -> {on['ms']:.1f} ms [{smi}]", flush=True)
+            if off["runs"] != on["runs"] or on["k1"] != off["k1"] + trained * CALLS_PER_DECODE \
+                    or off["k1"] != runs * CALLS_PER_DECODE or on["k2"] != off["k2"] or not off["k2"]:
+                raise RuntimeError(f"[18 remat] {name}: launches {off['k1']}/{off['k2']} -> "
+                                   f"{on['k1']}/{on['k2']} for runs {off['runs']}, {on['runs']}")
+            if off["plain"] or on["plain"] or same["plain"] or max(rel.values()) > LOSS_TOL or \
+                    len(same["grads"]) != len(ref["grads"]) or max(g_err) > GRAD_TOL \
+                    or not all(np.isfinite(v) for v in on["metrics"].values()):
+                raise RuntimeError(f"[18 remat] {name}: {rel}, {g_err}")
+            del ref, off, on, same
+
+        largest = 16
+        for size in REMAT_LADDER:  # the joint step with remat, up the ladder
+            try:
+                r = _spied_step(op, Stage2Trainer, cfg, models, init, _fixture_batch(data, size),
+                                cfg.loss_params.joint_epoch, True)
+            except torch.cuda.OutOfMemoryError as e:
+                oom = str(e).splitlines()[0]
+                torch.cuda.empty_cache()
+                print(f"[18 remat] stage-2 joint, batch {size}, remat: does not fit: {oom} [{smi}]",
+                      flush=True)
+                break
+            launches[0] += r["k1"]
+            launches[1] += r["k2"]
+            largest = size
+            print(f"[18 remat] stage-2 joint, batch {size}, remat: {r['ms']:.1f} ms, peak "
+                  f"{r['peak'] / 2 ** 30:.2f} GiB, finite "
+                  f"{all(np.isfinite(v) for v in r['metrics'].values())} [{smi}]", flush=True)
+            if not all(np.isfinite(v) for v in r["metrics"].values()) or r["plain"]:
+                raise RuntimeError(f"[18 remat] batch {size}: {r['metrics']}")
+        else:
+            oom = None
+        print(f"[18 remat] the largest stage-2 joint batch that fits with remat, f32: {largest}"
+              + ("" if oom else f" (the ladder's top; {REMAT_LADDER[-1]} fits)") + f" [{smi}]",
+              flush=True)
+
+        bf16 = copy.deepcopy(cfg)
+        bf16.mixed_precision = "bf16"
+        for _ in range(2):  # the second: the first bf16 step of the process warms up
+            r = _spied_step(op, Stage2Trainer, bf16, models, init, batch, cfg.loss_params.joint_epoch,
+                            True)
+            launches[0] += r["k1"]
+            launches[1] += r["k2"]
+        runs, trained = r["runs"]
+        print(f"[18 remat] stage-2 joint, batch 16, bf16, remat: {r['ms']:.1f} ms, peak "
+              f"{r['peak'] / 2 ** 30:.2f} GiB; K1 {r['k1']} K2 {r['k2']} with x in {sorted(r['dtypes'])}"
+              f" [{smi}]", flush=True)
+        if not all(np.isfinite(v) for v in r["metrics"].values()) or r["plain"] or \
+                r["dtypes"] != {"bfloat16"} or r["k1"] != (runs + trained) * CALLS_PER_DECODE:
+            raise RuntimeError(f"[18 remat] bf16: {r['metrics']}, K1 {r['k1']} in {r['dtypes']}")
+        del models, init, r
+    torch.cuda.empty_cache()
+    print(f"[18 remat] phase 18 in {time.perf_counter() - start:.1f} s wall [{smi}]", flush=True)
+    return launches
+
+
+def libritts_stage2_phase(op, build_dir, smi, dev):
+    """Phase 19: `libritts_config()` stage 2 at full width through
+    `run_stage("second")` from the port's own first stage, with
+    `remat_decoder`: 2 steps each before diffusion, with it and joint at the
+    first of STAGE2_BATCHES that fits, checked as phase 12 checks its steps
+    (96 K1 per HiFi-GAN decoder run, 192 per differentiated one); then a
+    reduced-width joint step card vs CPU as phase 14's. Returns (K1, K2)."""
+    from styletts2_tpu_torch.config import libritts_config
+    from styletts2_tpu_torch.train import run as train_run
+
+    with tempfile.TemporaryDirectory(dir=build_dir) as tdir:
+        data = training_fixture(Path(tdir) / "data")
+        for batch in STAGE2_BATCHES:
+            cfg = libritts_config()
+            cfg.data_params, cfg.batch_size, cfg.log_interval = data, batch, 1
+            cfg.log_dir, cfg.remat_decoder = str(Path(tdir) / f"logs_{batch}"), True
+            cfg.epochs_1st, cfg.epochs_2nd, cfg.slmadv_params.iter = 1, 3, 2
+            cfg.loss_params.diff_epoch, cfg.loss_params.joint_epoch = 1, 2
+            try:
+                train_run.run_stage("first", cfg, max_steps=1, device="cuda")  # the handoff
+                t0 = time.perf_counter()
+                steps, sigma, peak, k1, k2, log = _stage2_run(op, "second", cfg, smi,
+                                                              "19 libritts stage 2")
+                break
+            except torch.cuda.OutOfMemoryError as e:
+                oom = str(e).splitlines()[0]
+            torch.cuda.empty_cache()
+            print(f"[19 libritts stage 2] batch {batch}: {oom}; trying a smaller batch [{smi}]",
+                  flush=True)
+        else:
+            raise RuntimeError("libritts stage 2: no batch fits the card")
+        wall = time.perf_counter() - t0
+        if [st["epoch"] for st in steps] != [0, 0, 1, 1, 2, 2] or "loaded first stage" not in log:
+            raise RuntimeError(f"libritts stage 2: epochs {[st['epoch'] for st in steps]}")
+        ms = _phase_ms(cfg, steps)
+        print(f"[19 libritts stage 2] run_stage('second', libritts_config()), remat: batch "
+              f"{cfg.batch_size}, max_len {cfg.max_len}, {len(steps)} steps in {wall:.1f} s wall; "
+              + "; ".join(f"{ph} {', '.join(f'{t:.1f}' for t in v)} ms" for ph, v in ms.items())
+              + f"; peak {peak / 2 ** 30:.2f} GiB; sigma_data -> {sigma!r}; launches K1 {k1} K2 {k2}, "
+              f"0 plain-version calls [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+    stage2_reference_phase(dev, "19 libritts reference", libritts=True)
+    return k1, k2
+
+
+def train_child(argv):
+    """`chip_smoke.py --train-child OUT ARGS...`: `train.run.main(ARGS)` with
+    the kernels' launches and the plain versions' calls counted, written as
+    JSON to OUT (phase 20 runs it under torch.distributed.run)."""
+    sys.path.insert(0, str(REPO))
+    from styletts2_tpu_torch.ops import adain_snake as op
+    from styletts2_tpu_torch.train import run as train_run
+
+    out, args = argv[0], argv[1:]
+    op.adain_snake.launches = op.adain_snake.bwd_launches = 0
+    with _Tally(op) as tally:
+        train_run.main(args)
+    Path(out).write_text(json.dumps({"k1": op.adain_snake.launches, "k2": op.adain_snake.bwd_launches,
+                                     "plain": tally.plain}))
+
+
+def write_hf_wavlm(path: Path, seed=0):
+    """A full-width WavLM (base plus widths) from seeded weights in the
+    Hugging Face layout: config.json, model.safetensors (the positional
+    conv's weight norm as parametrizations.weight.original0 / 1) and
+    pytorch_model.bin (as weight_g / weight_v), each with HF's unread
+    masked_spec_embed. Returns the port's WavLM with those weights."""
+    from styletts2_tpu_torch.models.wavlm import CONV_DIM, CONV_KERNELS, CONV_STRIDES, WavLM, init_wavlm_
+
+    path.mkdir(parents=True)
+    wavlm = WavLM()
+    init_wavlm_(wavlm, torch.Generator().manual_seed(seed))
+    sd = {k: v.detach().clone() for k, v in wavlm.state_dict().items()}
+    w = sd.pop("encoder.pos_conv_embed.conv.weight")
+    g = w.pow(2).sum(dim=(0, 1), keepdim=True).sqrt()  # dim=2 weight norm: v = w, |v| g = w
+    sd["masked_spec_embed"] = torch.zeros(768)
+    pos = "encoder.pos_conv_embed.conv"
+    forms = {"model.safetensors": {f"{pos}.parametrizations.weight.original0": g,
+                                   f"{pos}.parametrizations.weight.original1": w},
+             "pytorch_model.bin": {f"{pos}.weight_g": g, f"{pos}.weight_v": w}}
+    for name, extra in forms.items():
+        tensors = dict(sd, **extra)
+        if name.endswith(".bin"):
+            torch.save(tensors, path / name)
+            continue
+        header, blobs, offset = {}, [], 0
+        for k, v in tensors.items():
+            b = v.contiguous().numpy().astype("<f4").tobytes()
+            header[k] = {"dtype": "F32", "shape": list(v.shape), "data_offsets": [offset, offset + len(b)]}
+            blobs.append(b)
+            offset += len(b)
+        head = json.dumps(header).encode()
+        (path / name).write_bytes(len(head).to_bytes(8, "little") + head + b"".join(blobs))
+    (path / "config.json").write_text(json.dumps({
+        "model_type": "wavlm", "hidden_size": 768, "num_attention_heads": 12,
+        "intermediate_size": 3072, "num_hidden_layers": 12, "conv_dim": [CONV_DIM] * 7,
+        "conv_kernel": list(CONV_KERNELS), "conv_stride": list(CONV_STRIDES),
+        "num_conv_pos_embeddings": 128, "num_conv_pos_embedding_groups": 16}))
+    return wavlm
+
+
+def ddp_wavlm_phase(op, build_dir, smi, dev):
+    """Phases 20 and 21. 21: a full-width WavLM directory in the Hugging
+    Face layout from seeded weights (`write_hf_wavlm`), read on the card by
+    `convert.wavlm_from_hf` from model.safetensors and, without it, from
+    pytorch_model.bin: hidden states equal to the port module's with the
+    same weights (within WAVLM_TOL of the peak: the reader folds the
+    positional conv's weight norm, which rounds its weight). 20: `python -m torch.distributed.run --standalone
+    --nproc_per_node 1 chip_smoke.py --train-child ... first --max_steps 2`
+    (`train.run.main` as one NCCL rank) on phase 10's fixture at full width,
+    batch 16, its WavLM from that directory and its second step traced
+    (STYLETTS2_TRACE_STEP): its losses equal an unlaunched run's from the
+    same seed, its log names the backend and "loaded WavLM", K1 and K2
+    launched, 0 plain-version calls. One card: more ranks than one are
+    shown by the CPU test (tests/test_torch_ddp.py). Returns (K1, K2)."""
+    from styletts2_tpu_torch.config import Config
+    from styletts2_tpu_torch.convert import wavlm_from_hf
+
+    launches = [0, 0]
+    with tempfile.TemporaryDirectory(dir=build_dir) as tdir:
+        tdir = Path(tdir)
+        t0 = time.perf_counter()
+        wavlm = write_hf_wavlm(tdir / "wavlm-base-plus").to(dev).eval()
+        wav = torch.from_numpy(_voice(2.0, 16000)[None]).to(dev)
+        errs = {}
+        with torch.inference_mode():
+            want = wavlm(wav)
+            for fmt in ("model.safetensors", "pytorch_model.bin"):
+                got = wavlm_from_hf(str(tdir / "wavlm-base-plus")).to(dev).eval()(wav)
+                errs[fmt] = max(_rel(g.cpu(), w.cpu()) for g, w in zip(got, want))
+                (tdir / "wavlm-base-plus" / fmt).rename(tdir / fmt)  # the other form next
+        for fmt in errs:
+            (tdir / fmt).rename(tdir / "wavlm-base-plus" / fmt)
+        print(f"[21 wavlm] full-width WavLM directory (config.json, model.safetensors, "
+              f"pytorch_model.bin) read on the card: {len(want)} hidden states, rel err against the "
+              f"port module with the same weights " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+              + f" (tol {WAVLM_TOL:g}); {time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+        if max(errs.values()) > WAVLM_TOL:
+            raise RuntimeError(f"[21 wavlm] the reader disagrees: {errs}")
+        del wavlm, got, want
+
+        cfg = Config()
+        cfg.data_params = training_fixture(tdir / "data")
+        cfg.epochs_1st, cfg.save_freq, cfg.log_interval = 1, 100, 1
+        cfg.model_params.slm.model = str(tdir / "wavlm-base-plus")
+        runs = {}
+        for name in ("unlaunched", "launched"):
+            cfg.log_dir = str(tdir / name)
+            path = tdir / f"{name}.json"
+            path.write_text(json.dumps(dataclasses.asdict(cfg)))  # JSON: no PyYAML on the card
+            args = ["first", "--config_path", str(path), "--max_steps", "2"]
+            t0 = time.perf_counter()
+            if name == "launched":
+                env = dict(os.environ, STYLETTS2_TRACE_STEP="2")
+                res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                                      "--nproc_per_node", "1", str(REPO / "chip_smoke.py"),
+                                      "--train-child", str(tdir / "counts.json"), *args],
+                                     cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+                if res.returncode:
+                    raise RuntimeError(f"[20 ddp] launched run: exit {res.returncode}\n{res.stderr[-3000:]}")
+                counts = json.loads((tdir / "counts.json").read_text())
+            else:
+                k1, k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
+                with _Tally(op) as tally:
+                    from styletts2_tpu_torch.train import run as train_run
+                    train_run.main(args)
+                counts = {"k1": op.adain_snake.launches - k1, "k2": op.adain_snake.bwd_launches - k2,
+                          "plain": tally.plain}
+                torch.cuda.empty_cache()
+            launches[0] += counts["k1"]
+            launches[1] += counts["k2"]
+            log = (Path(cfg.log_dir) / "train.log").read_text()
+            train = [json.loads(x) for x in (Path(cfg.log_dir) / "metrics.jsonl").read_text().splitlines()
+                     if '"train/mel"' in x]
+            runs[name] = {"counts": counts, "log": log, "train": train,
+                          "wall": time.perf_counter() - t0}
+        a, b = runs["launched"], runs["unlaunched"]
+        keys = [k for k in b["train"][0] if k.startswith("train/") and "step_sec" not in k]
+        rel = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-6) for x, y in zip(a["train"], b["train"])
+                  for k in keys)
+        backend = [x for x in a["log"].splitlines() if "data-parallel: rank" in x]
+        traces = list((tdir / "launched" / "traces").glob("*.json"))
+        kernels = collections.Counter()
+        for t in traces:
+            for e in json.loads(t.read_text()).get("traceEvents", []):
+                name = e.get("name", "")
+                if e.get("cat") == "kernel" and "adain_snake" in name:
+                    kernels["K2" if "bwd" in name else "K1"] += 1
+        print(f"[20 ddp] torch.distributed.run --nproc_per_node 1, train.run first --max_steps 2: "
+              f"{backend[-1].split(': ', 1)[-1] if backend else 'no rank line'}; "
+              f"{len(a['train'])} steps, losses against the unlaunched run: max rel err {rel:.2e} "
+              f"(tol {LOSS_TOL:g}); K1 {a['counts']['k1']} K2 {a['counts']['k2']} (unlaunched "
+              f"{b['counts']['k1']} / {b['counts']['k2']}), {a['counts']['plain']} plain-version "
+              f"calls; its traced step {len(traces)} trace file(s), device kernel events {dict(kernels)}; "
+              f"wall {a['wall']:.1f} s launched, {b['wall']:.1f} s in-process. One card: runs on more "
+              f"ranks than one are held to one process's step by the CPU test, two gloo ranks "
+              f"(tests/test_torch_ddp.py) [{smi}]", flush=True)
+        if not backend or "backend nccl" not in backend[-1] or "rank 0 of 1" not in backend[-1] or \
+                len(a["train"]) != 2 or len(b["train"]) != 2 or rel > LOSS_TOL or \
+                a["counts"] != b["counts"] or a["counts"]["plain"] or not a["counts"]["k2"] or \
+                len(traces) != 1:
+            raise RuntimeError(f"[20 ddp] {backend}, {a['counts']}, {b['counts']}, rel {rel}, "
+                               f"{len(traces)} traces")
+        for name, r in runs.items():
+            loaded = [x for x in r["log"].splitlines() if "loaded WavLM from" in x]
+            if not loaded:
+                raise RuntimeError(f"[21 wavlm] the {name} run did not load WavLM: {r['log'][-2000:]}")
+        print(f"[21 wavlm] both stage-1 runs of phase 20: {loaded[-1].split(': ', 1)[-1]}", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -1780,6 +2270,9 @@ def main():
     bf16_k1 = bf16_serving_phase(op, serve, build_dir, smi)  # 15
     mp_k1, mp_k2 = bf16_training_phase(op, build_dir, smi, f32_stage1, f32_stage2)  # 16
     ref_k1 = reference_phase(op, serve, dev, build_dir, smi)  # 17
+    remat_k1, remat_k2 = remat_phase(op, build_dir, smi)  # 18
+    lt2_k1, lt2_k2 = libritts_stage2_phase(op, build_dir, smi, dev)  # 19
+    ddp_k1, ddp_k2 = ddp_wavlm_phase(op, build_dir, smi, dev)  # 20, 21
 
     def row(t, shape, dtype):
         return {"shape": list(shape), "dtype": dtype, "ms": t["cold"][0], "plain_ms": t["cold"][1],
@@ -1793,7 +2286,7 @@ def main():
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:38",
         "launches": lj.launches + lt.launches + sv.launches + train_k1 + stage2_k1 + bf16_k1 + mp_k1
-        + ref_k1,
+        + ref_k1 + remat_k1 + lt2_k1 + ddp_k1,
         "max_abs_err": max_err["float32"],
         "ms": fwd["cold"][0], "plain_ms": fwd["cold"][1], "bound_ms": fwd["bound"],
         "bound_by": "bytes", "library_ms": None, "shape": list(fwd_shape),
@@ -1803,7 +2296,8 @@ def main():
         "name": "adain_snake_bwd", "route": "cuda",
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:117",
-        "launches": train_k2 + stage2_k2 + mp_k2, "max_abs_err": bwd_err["float32"],
+        "launches": train_k2 + stage2_k2 + mp_k2 + remat_k2 + lt2_k2 + ddp_k2,
+        "max_abs_err": bwd_err["float32"],
         "ms": bwd["cold"][0], "plain_ms": bwd["cold"][1], "bound_ms": bwd["bound"],
         "bound_by": "bytes", "library_ms": None, "shape": list(bwd_shape),
         "bf16": dict(row(bwd_timings[bwd_shape, "bfloat16"], bwd_shape, "bfloat16"),
@@ -1815,4 +2309,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--train-child"]:
+        train_child(sys.argv[2:])
+    else:
+        main()

@@ -13,6 +13,7 @@ reference-format configs load unchanged. PyYAML is imported only inside
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List
@@ -195,6 +196,10 @@ class Config:
     # "" (f32) or "bf16": the modules of train/mp.py's BF16_MODULES compute
     # in bf16 over f32 master weights and optimizer state in training steps
     mixed_precision: str = ""
+    # activation checkpointing of the decoder's Generator in training steps
+    # (`styletts2_tpu/config.py:206-211`): its 24 kHz activations are
+    # recomputed in the backward instead of held; inference ignores it
+    remat_decoder: bool = False
     F0_path: str = "Utils/JDC/bst.t7"
     ASR_path: str = "Utils/ASR/epoch_00080.pth"
     PLBERT_dir: str = "Utils/PLBERT/"
@@ -247,11 +252,16 @@ def finetune_config() -> Config:
 
 
 def load_config(path: str) -> Config:
-    """Load a reference-format YAML config (configs/*.yml)."""
-    import yaml
-
+    """Load a reference-format YAML config (configs/*.yml); a JSON file (a
+    YAML subset, as the trainer writes a Config's copy) needs no PyYAML."""
     with open(path) as f:
-        return Config.from_dict(yaml.safe_load(f))
+        text = f.read()
+    try:
+        return Config.from_dict(json.loads(text))
+    except json.JSONDecodeError:
+        import yaml
+
+        return Config.from_dict(yaml.safe_load(text))
 
 
 def config_from_path(path: str) -> Config:

@@ -26,17 +26,27 @@ checkpoint ({module: state_dict}, the reference's `.pth` or the port's own
 trainer files): the port's module names are the reference's, so it strips
 DataParallel's `module.` prefixes and takes the diffusion model's `unet.`
 weights, and reads nothing else.
+
+`wavlm_from_hf(path)` builds the WavLM of a local Hugging Face directory
+(`config.json` and `pytorch_model.bin` or `model.safetensors`, as
+`WavLMModel.save_pretrained` writes them) without `transformers` or
+`safetensors`; `hf_model_dir(name)` finds a hub name's snapshot in the local
+cache only (`styletts2_tpu/train/run.py:119-140`, `convert.py:50-106`).
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
+import struct
 from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from styletts2_tpu_torch.config import Config
+from styletts2_tpu_torch.models import wavlm
 from styletts2_tpu_torch.models.build import module_keys, parameter_names
 
 
@@ -425,3 +435,111 @@ def state_dict_from_reference(net: Mapping[str, Mapping[str, torch.Tensor]], cfg
         logging.getLogger(__name__).info(
             f"state_dict_from_reference: {len(unused)} names nothing reads: {shown}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# WavLM from a local Hugging Face directory
+
+# config.json fields the port's WavLM fixes, and their values there
+# (`models/wavlm.py`: the conv stem and the grouped positional conv)
+WAVLM_FIXED = {"conv_dim": [wavlm.CONV_DIM] * 7, "conv_kernel": list(wavlm.CONV_KERNELS),
+               "conv_stride": list(wavlm.CONV_STRIDES), "num_conv_pos_embeddings": 128,
+               "num_conv_pos_embedding_groups": 16}
+_SAFETENSORS_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
+                       "BF16": np.uint16, "I64": np.int64, "I32": np.int32, "I16": np.int16,
+                       "I8": np.int8, "U8": np.uint8, "BOOL": np.bool_}
+
+
+def hf_model_dir(name: str) -> Optional[str]:
+    """The directory of a Hugging Face model: `name` itself when it is a
+    directory, else the snapshot `refs/main` names of the hub name `name`
+    in the local cache ($HF_HUB_CACHE, else $HF_HOME/hub, else
+    ~/.cache/huggingface/hub). None when neither exists; nothing is fetched."""
+    if os.path.isdir(name):
+        return name
+    cache = os.environ.get("HF_HUB_CACHE") or os.path.join(
+        os.environ.get("HF_HOME") or os.path.join(os.path.expanduser("~"), ".cache", "huggingface"),
+        "hub")
+    repo = os.path.join(cache, "models--" + name.replace("/", "--"))
+    try:
+        with open(os.path.join(repo, "refs", "main")) as f:
+            snapshot = os.path.join(repo, "snapshots", f.read().strip())
+    except OSError:
+        return None
+    return snapshot if os.path.isdir(snapshot) else None
+
+
+def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """A `.safetensors` file by its documented layout: a little-endian u64
+    header length, a JSON header {name: {"dtype", "shape", "data_offsets"}}
+    and the raw little-endian bytes after it."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = f.read()
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}, not read here")
+        start, end = info["data_offsets"]
+        dtype = np.dtype(_SAFETENSORS_DTYPES[info["dtype"]]).newbyteorder("<")
+        a = np.frombuffer(data[start:end], dtype).astype(dtype.newbyteorder("="))
+        t = torch.from_numpy(a).reshape(info["shape"])
+        out[name] = t.view(torch.bfloat16) if info["dtype"] == "BF16" else t
+    return out
+
+
+def _hf_weights(path: str) -> Dict[str, torch.Tensor]:
+    """The weights file of a Hugging Face directory; OSError naming the file
+    where it cannot be read."""
+    st, pt = os.path.join(path, "model.safetensors"), os.path.join(path, "pytorch_model.bin")
+    if not (os.path.exists(st) or os.path.exists(pt)):
+        raise FileNotFoundError(f"{path} has neither model.safetensors nor pytorch_model.bin")
+    file = st if os.path.exists(st) else pt
+    try:
+        return (read_safetensors(st) if file == st else
+                torch.load(pt, map_location="cpu", weights_only=True))
+    except Exception as e:  # any unreadable file: a truncated one, another format
+        raise OSError(f"could not read {file}: {type(e).__name__}: {e}") from e
+
+
+def wavlm_from_hf(path: str) -> "wavlm.WavLM":
+    """The WavLM of the Hugging Face directory `path`: built at the widths
+    of its `config.json` (hidden_size, num_attention_heads,
+    intermediate_size, num_hidden_layers), the fields the port fixes
+    checked (ValueError where one differs), its weights read from
+    `model.safetensors` or `pytorch_model.bin` under the port's names (HF's;
+    a `wavlm.` prefix stripped), the positional conv's weight norm folded
+    from either form (weight_g / weight_v, or parametrizations.weight.
+    original0 / original1). A missing weight is a KeyError naming it and
+    the file; the names nothing reads (masked_spec_embed, ...) go into one
+    log line."""
+    cfg_path = os.path.join(path, "config.json")
+    with open(cfg_path) as f:
+        hf = json.load(f)
+    for key, want in WAVLM_FIXED.items():
+        got = hf.get(key, want)
+        if (list(got) if isinstance(got, (list, tuple)) else got) != want:
+            raise ValueError(f"{cfg_path}: {key} {got}, the port's WavLM has {want}")
+    model = wavlm.WavLM(hidden=hf["hidden_size"], heads=hf["num_attention_heads"],
+                        intermediate=hf["intermediate_size"], num_layers=hf["num_hidden_layers"])
+    sd = {k[6:] if k.startswith("wavlm.") else k: v for k, v in _hf_weights(path).items()}
+    pos = "encoder.pos_conv_embed.conv"
+    for g_name, v_name in ((f"{pos}.weight_g", f"{pos}.weight_v"),
+                           (f"{pos}.parametrizations.weight.original0",
+                            f"{pos}.parametrizations.weight.original1")):
+        if g_name in sd and v_name in sd:  # weight norm over the kernel axis (dim=2)
+            g, v = sd.pop(g_name).float(), sd.pop(v_name).float()
+            sd[f"{pos}.weight"] = v / v.pow(2).sum(dim=(0, 1), keepdim=True).sqrt() * g
+    state = {}
+    for name, want in model.state_dict().items():
+        if name not in sd:
+            raise KeyError(f"{path}: no weight {name!r}")
+        state[name] = sd.pop(name).to(want.dtype)
+    model.load_state_dict(state)
+    if sd:
+        shown = ", ".join(sorted(sd)[:12]) + (", ..." if len(sd) > 12 else "")
+        logging.getLogger(__name__).info(f"wavlm_from_hf: {len(sd)} names nothing reads: {shown}")
+    return model

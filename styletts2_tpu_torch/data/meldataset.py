@@ -20,6 +20,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from styletts2_tpu_torch.parallel.ddp import process_shard
 from styletts2_tpu_torch.text import SYMBOL_TO_ID
 from styletts2_tpu_torch.utils import read_wav, resample_sinc
 
@@ -316,10 +317,16 @@ def build_dataloader(
     batch_size: int = 16,
     validation: bool = False,
     seed: int = 1,
+    shard: Tuple[int, int] = (0, 1),
 ) -> DataLoader:
     """The reference's build_dataloader: shuffled, drop-last batches for
-    training; in order, every item, for validation."""
+    training; in order, every item, for validation. `shard` (rank, world)
+    gives a training loader rank's contiguous slice of the list
+    (`parallel/ddp.process_shard`, the JAX loader's `shard_across_processes`);
+    validation reads the whole list."""
     data = load_data_list(path_list)
+    if not validation and shard[1] > 1:
+        data = data[process_shard(len(data), *shard)]
     ood_texts = None
     if ood_path and os.path.exists(ood_path):
         with open(ood_path, encoding="utf-8", errors="ignore") as f:

@@ -10,6 +10,12 @@ generated feature maps) tuples of the MPD and the MRSD. Every loss
 accumulates in f32. Stage 2 adds the duration losses (binary CE on the
 duration bins, L1 on the summed durations over interior tokens), smooth L1
 for F0 and energy, and the stacking of WavLM states for its discriminator.
+
+In a data-parallel step (`parallel/ddp.py`) the two terms that are not
+means of per-row terms are taken over the global batch: the
+multi-resolution loss's sums through `ddp.global_sum`, TPRLS's median over
+the ranks' rows gathered by `ddp.gather_rows`. Every other loss is a mean
+of per-row terms over equal shards.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from styletts2_tpu_torch.ops.stft import MEL_MEAN, MEL_STD, melspectrogram
+from styletts2_tpu_torch.parallel import ddp
 
 MRSTFT_RESOLUTIONS = ((1024, 120, 600), (2048, 240, 1200), (512, 50, 240))
 
@@ -36,7 +43,7 @@ def multires_stft_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     for n_fft, hop, win in MRSTFT_RESOLUTIONS:
         xm = _log_norm_mel(x, n_fft, hop, win)
         ym = _log_norm_mel(y, n_fft, hop, win)
-        total = total + (ym - xm).abs().sum() / ym.abs().sum()
+        total = total + ddp.global_sum((ym - xm).abs().sum()) / ddp.global_sum(ym.abs().sum())
     return total / len(MRSTFT_RESOLUTIONS)
 
 
@@ -69,7 +76,7 @@ def tprls_loss(first_outputs, second_outputs, tau: float = 0.04) -> torch.Tensor
     the generator (generated, real)."""
     loss = 0.0
     for da, db in zip(first_outputs, second_outputs):
-        diff = da.float() - db.float()
+        diff = ddp.gather_rows(da.float()) - ddp.gather_rows(db.float())
         m = torch.median(diff)  # the lower of the two middle values, as the JAX package
         mask = (diff < m).float()
         l_rel = (((diff - m) ** 2) * mask).sum() / mask.sum().clamp(min=1.0)

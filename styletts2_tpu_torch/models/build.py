@@ -62,6 +62,7 @@ def _decoder(cfg: Config) -> nn.Module:
         upsample_initial_channel=dec.upsample_initial_channel,
         resblock_dilation_sizes=tuple(map(tuple, dec.resblock_dilation_sizes)),
         upsample_kernel_sizes=tuple(dec.upsample_kernel_sizes),
+        remat=cfg.remat_decoder,
     )
     if dec.type == "istftnet":
         return decoder_istft.Decoder(**common, gen_istft_n_fft=dec.gen_istft_n_fft,

@@ -9,7 +9,8 @@ stage through a strided conv, and a final snake, conv_post (C -> 1, k = 7)
 and tanh in f32 (under bf16 too: its weights upcast). NCW activations in
 asr's dtype, the source joining it. Every `AdaINResBlock1` (one `noise_res`
 and three `resblocks` per stage) runs the fused `adain_snake` kernel twice
-per dilation: 16 blocks x 3 dilations x 2 = 96 launches per decode.
+per dilation: 16 blocks x 3 dilations x 2 = 96 launches per decode (192
+per differentiated decode under `remat`, as the iSTFTNet Generator's).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from styletts2_tpu_torch.models.decoder_istft import (
     AdaINResBlock1,
     DecoderHead,
     SourceModuleHnNSF,
+    rematerialized,
     upsample_nearest,
 )
 from styletts2_tpu_torch.models.layers import WNConv1d, WNConvTranspose1d, snake
@@ -34,8 +36,9 @@ class Generator(nn.Module):
     def __init__(self, style_dim: int = 128, resblock_kernel_sizes=(3, 7, 11),
                  upsample_rates=(10, 5, 3, 2), upsample_initial_channel: int = 512,
                  resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
-                 upsample_kernel_sizes=(20, 10, 6, 4)):
+                 upsample_kernel_sizes=(20, 10, 6, 4), remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.num_kernels = len(resblock_kernel_sizes)
         self.total_up = int(np.prod(upsample_rates))
         self.m_source = SourceModuleHnNSF(upsample_scale=self.total_up, harmonic_num=8)
@@ -64,15 +67,20 @@ class Generator(nn.Module):
                 self.resblocks.append(AdaINResBlock1(c_cur, rk, tuple(rd), style_dim))
         self.conv_post = WNConv1d(c_cur, 1, 7, padding=3)
 
-    def forward(self, x, s, f0_curve, generator: Optional[torch.Generator] = None):
+    def forward(self, x, s, f0_curve, generator: Optional[torch.Generator] = None,
+                har_source=None):
         """x (B, C0, T_mel), s (B, style), f0_curve (B, T_mel) -> wav
-        (B, T_mel * prod(upsample_rates))."""
-        f0 = upsample_nearest(f0_curve, self.total_up)[..., None]
-        # (B, L, 1) -> (B, 1, L) with NCW strides: the transposed view's strides
-        # read as channels-last, and cuDNN would then return the noise convs'
-        # outputs channels-last, which the fused kernel does not take
-        har_source = self.m_source(f0, generator)[0].reshape(f0.shape[0], 1, -1).detach()
-        har_source = har_source.to(x.dtype)
+        (B, T_mel * prod(upsample_rates)). The source is drawn here unless
+        `har_source` is given."""
+        if har_source is None:
+            f0 = upsample_nearest(f0_curve, self.total_up)[..., None]
+            # (B, L, 1) -> (B, 1, L) with NCW strides: the transposed view's strides
+            # read as channels-last, and cuDNN would then return the noise convs'
+            # outputs channels-last, which the fused kernel does not take
+            har_source = self.m_source(f0, generator)[0].reshape(f0.shape[0], 1, -1).detach()
+            har_source = har_source.to(x.dtype)
+            if self.remat and torch.is_grad_enabled():
+                return rematerialized(self, (x, s, f0_curve), {"har_source": har_source})
         for i, up in enumerate(self.ups):
             x = snake(x, self.alphas[i])
             xs_src = self.noise_res[i](self.noise_convs[i](har_source), s)
@@ -95,8 +103,9 @@ class Decoder(DecoderHead):
     def __init__(self, dim_in: int = 512, style_dim: int = 128, resblock_kernel_sizes=(3, 7, 11),
                  upsample_rates=(10, 5, 3, 2), upsample_initial_channel: int = 512,
                  resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
-                 upsample_kernel_sizes=(20, 10, 6, 4), bottleneck: int = 1024):
+                 upsample_kernel_sizes=(20, 10, 6, 4), bottleneck: int = 1024,
+                 remat: bool = False):
         super().__init__(dim_in, style_dim, upsample_initial_channel, bottleneck)
         self.generator = Generator(style_dim, resblock_kernel_sizes, upsample_rates,
                                    upsample_initial_channel, resblock_dilation_sizes,
-                                   upsample_kernel_sizes)
+                                   upsample_kernel_sizes, remat)

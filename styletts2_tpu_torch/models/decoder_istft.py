@@ -13,6 +13,12 @@ Under bf16 these stay f32 (`styletts2_tpu/models/decoder_istft.py`): the
 pitch the source reads, its sines (their phase reaches thousands of
 radians) and merge, the source's STFT, and the head: conv_post, exp / sin
 and the iSTFT; the waveform comes back f32.
+
+With `remat` (the config's `remat_decoder`) a Generator run that records a
+graph keeps only its inputs: its body is recomputed in the backward
+(`rematerialized`), so each of its K1 launches runs twice and K2 as often
+as before. The NSF source is drawn before the checkpoint and handed to the
+body, so that the recompute reads the same sines and noise.
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from styletts2_tpu_torch.models.blocks import AdainResBlk1d
 from styletts2_tpu_torch.models.layers import StyleAffine, WNConv1d, WNConvTranspose1d, leaky_relu
@@ -40,6 +48,17 @@ def interp_linear(x: torch.Tensor, out_len: int) -> torch.Tensor:
     hi = (lo + 1).clamp(max=T - 1)
     w = (coords - lo)[None, :, None]
     return x[:, lo, :] * (1.0 - w) + x[:, hi, :] * w
+
+
+def rematerialized(module: nn.Module, args, kwargs):
+    """module(*args, **kwargs) under activation checkpointing: the backward
+    recomputes it with the parameters and buffers this call read (under
+    mixed precision the step's bf16 copies, which `train/mp.py:run` swaps in
+    only for the call's duration)."""
+    tensors = dict(module.named_parameters())
+    tensors.update(module.named_buffers())
+    return checkpoint(lambda *a: functional_call(module, tensors, a, kwargs), *args,
+                      use_reentrant=False)
 
 
 def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -127,8 +146,9 @@ class Generator(nn.Module):
                  upsample_rates=(10, 6), upsample_initial_channel: int = 512,
                  resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
                  upsample_kernel_sizes=(20, 12), gen_istft_n_fft: int = 20,
-                 gen_istft_hop_size: int = 5):
+                 gen_istft_hop_size: int = 5, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.num_kernels = len(resblock_kernel_sizes)
         self.n_fft, self.hop = gen_istft_n_fft, gen_istft_hop_size
         self.total_up = int(np.prod(upsample_rates)) * gen_istft_hop_size
@@ -155,12 +175,16 @@ class Generator(nn.Module):
                 self.resblocks.append(AdaINResBlock1(c_cur, rk, tuple(rd), style_dim))
         self.conv_post = WNConv1d(c_cur, n_src, 7, padding=3)
 
-    def forward(self, x, s, f0_curve, generator=None):
-        """x (B, C0, T_mel), s (B, style), f0_curve (B, T_mel) -> wav (B, T_mel * 300)."""
-        f0 = upsample_nearest(f0_curve, self.total_up)[..., None]
-        har_source = self.m_source(f0, generator)[0][..., 0].detach()
-        har = torch.cat(stft_magphase(har_source, self.n_fft, self.hop, self.n_fft),
-                        dim=1).to(x.dtype)
+    def forward(self, x, s, f0_curve, generator=None, har=None):
+        """x (B, C0, T_mel), s (B, style), f0_curve (B, T_mel) -> wav (B,
+        T_mel * 300). `har`, the source's STFT, is drawn here unless given."""
+        if har is None:
+            f0 = upsample_nearest(f0_curve, self.total_up)[..., None]
+            har_source = self.m_source(f0, generator)[0][..., 0].detach()
+            har = torch.cat(stft_magphase(har_source, self.n_fft, self.hop, self.n_fft),
+                            dim=1).to(x.dtype)
+            if self.remat and torch.is_grad_enabled():
+                return rematerialized(self, (x, s, f0_curve), {"har": har})
         n_up = len(self.ups)
         for i in range(n_up):
             x = leaky_relu(x, 0.1)
@@ -248,8 +272,9 @@ class Decoder(DecoderHead):
                  upsample_rates=(10, 6), upsample_initial_channel: int = 512,
                  resblock_dilation_sizes=((1, 3, 5), (1, 3, 5), (1, 3, 5)),
                  upsample_kernel_sizes=(20, 12), gen_istft_n_fft: int = 20,
-                 gen_istft_hop_size: int = 5, bottleneck: int = 1024):
+                 gen_istft_hop_size: int = 5, bottleneck: int = 1024, remat: bool = False):
         super().__init__(dim_in, style_dim, upsample_initial_channel, bottleneck)
         self.generator = Generator(style_dim, resblock_kernel_sizes, upsample_rates,
                                    upsample_initial_channel, resblock_dilation_sizes,
-                                   upsample_kernel_sizes, gen_istft_n_fft, gen_istft_hop_size)
+                                   upsample_kernel_sizes, gen_istft_n_fft, gen_istft_hop_size,
+                                   remat)

@@ -4,6 +4,7 @@
         [--max_steps N] [--device cuda]
     python -m styletts2_tpu_torch.train.run second --config_path configs/config.yml ...
     python -m styletts2_tpu_torch.train.run finetune --config_path configs/config_ft.yml ...
+    python -m torch.distributed.run --nproc_per_node N -m styletts2_tpu_torch.train.run ...
 
 `run_stage(stage, config)` builds the stage's modules with seeded random
 weights (the JAX package's init distributions), loads the reference ASR
@@ -25,11 +26,21 @@ otherwise `second` takes the first stage's handoff from
 stage 2 or finetuning the estimated sigma_data is written into the config
 copy in `log_dir`: a config file given by path is copied there, a Config
 object written there as JSON (a YAML subset) to `config.yml`. With
-STYLETTS2_DEBUG_NAN=1 the loop stops at the first non-finite metric and
-names the non-finite parameters. Stages 2 and finetuning take PL-BERT from
-the newest `step_N.t7` in `PLBERT_dir` (the largest N) where there is one.
-WavLM stays at random init: the port reads no Hugging Face weights, as the
-JAX `run.py` falls back when they are missing. After each epoch's
+STYLETTS2_DEBUG_NAN=1 the loop stops at the first non-finite metric
+(`observability.nan_check`) and names the non-finite parameters (up to
+20); STYLETTS2_TRACE_STEP=N writes a torch.profiler trace of the run's
+N-th step into `log_dir/traces/` (`observability.trace`); each step is
+timed by a `StepTimer` (`step_sec`, its EMA `step_sec_avg`). Stages 2 and
+finetuning take PL-BERT from the newest `step_N.t7` in `PLBERT_dir` (the
+largest N) where there is one. WavLM (`model_params.slm.model`) is read
+from a local Hugging Face directory, or a hub name's snapshot in the local
+cache (`convert.hf_model_dir`, `convert.wavlm_from_hf`); with neither it
+stays at random init, as the JAX `run.py` falls back. Launched by
+`torch.distributed.run`, each process is one rank of a data-parallel group
+(`parallel/ddp.py`): `batch_size` is the global batch, each rank takes its
+share of it from its own slice of the training list, and rank 0 alone
+writes the log file, metrics, checkpoints, eval artifacts and the config
+copy. After each epoch's
 validation the trainer's `eval_artifacts` of the first validation batch
 are written (`MetricsWriter.audio`, `.attention`): reconstructions and their
 ground truth, the first sample's attention in stage 1, and from
@@ -45,17 +56,17 @@ import json
 import os
 import re
 import shutil
-import time
 from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from styletts2_tpu_torch.config import Config, config_from_path
-from styletts2_tpu_torch.convert import state_dict_from_reference
+from styletts2_tpu_torch.convert import hf_model_dir, state_dict_from_reference, wavlm_from_hf
 from styletts2_tpu_torch.data.meldataset import build_dataloader
 from styletts2_tpu_torch.models.build import build_training_models
-from styletts2_tpu_torch.observability import MetricsWriter, get_logger
+from styletts2_tpu_torch.observability import MetricsWriter, StepTimer, get_logger, nan_check, trace
+from styletts2_tpu_torch.parallel import ddp
 from styletts2_tpu_torch.train.finetune import FinetuneTrainer
 from styletts2_tpu_torch.train.stage1 import Stage1Trainer
 from styletts2_tpu_torch.train.stage2 import Stage2Trainer
@@ -112,11 +123,34 @@ def _load_plbert(models, cfg: Config, logger) -> None:
         logger.warning(f"could not load PL-BERT from {path}: {type(e).__name__}: {e}")
 
 
+def _load_wavlm(models, cfg: Config, logger) -> None:
+    """WavLM from the Hugging Face directory (or cached hub snapshot) that
+    `model_params.slm.model` names; its widths must be those the config's
+    WavLM discriminator reads (`slm.hidden`, `slm.nlayers` states)."""
+    name = cfg.model_params.slm.model
+    path = hf_model_dir(name)
+    if path is None:
+        logger.info(f"WavLM at random init: no local Hugging Face directory or cached "
+                    f"snapshot of {name!r}")
+        return
+    try:
+        wavlm = wavlm_from_hf(path)
+        sl = cfg.model_params.slm
+        widths = (wavlm.encoder.layer_norm.normalized_shape[0], len(wavlm.encoder.layers) + 1)
+        if widths != (sl.hidden, sl.nlayers):
+            raise ValueError(f"{os.path.join(path, 'config.json')}: hidden {widths[0]}, "
+                             f"{widths[1]} states; the config's slm has {sl.hidden}, {sl.nlayers}")
+        models["wavlm"] = wavlm
+        logger.info(f"loaded WavLM from {path}")
+    except (OSError, RuntimeError, KeyError, ValueError) as e:
+        logger.warning(f"could not load WavLM from {path}: {type(e).__name__}: {e}")
+
+
 def setup(cfg: Config, device, logger, stage: str = "first"):
-    torch.manual_seed(0)  # dropout's draws
+    torch.manual_seed(ddp.rank_seed(0))  # dropout's draws, this rank's own
     models = build_training_models(cfg, torch.Generator().manual_seed(0), stage)
     _load_pretrained(models, cfg, logger)
-    logger.info("WavLM at random init: the port reads no Hugging Face weights")
+    _load_wavlm(models, cfg, logger)
     if stage != "first":
         _load_plbert(models, cfg, logger)
     models.to(device)
@@ -125,7 +159,9 @@ def setup(cfg: Config, device, logger, stage: str = "first"):
         state.sigma_data = cfg.model_params.diffusion.dist.sigma_data
     dp = cfg.data_params
     train_loader = build_dataloader(dp.train_data, dp.root_path, ood_path=dp.OOD_data,
-                                    min_length=dp.min_length, batch_size=cfg.batch_size)
+                                    min_length=dp.min_length,
+                                    batch_size=ddp.local_batch_size(cfg.batch_size, ddp.world()),
+                                    shard=(ddp.rank(), ddp.world()))
     val_loader = build_dataloader(dp.val_data, dp.root_path, ood_path=dp.OOD_data,
                                   min_length=dp.min_length, batch_size=cfg.batch_size,
                                   validation=True)
@@ -135,20 +171,28 @@ def setup(cfg: Config, device, logger, stage: str = "first"):
 def run_stage(stage: str, config: Union[Config, str], max_steps: Optional[int] = None,
               device="cuda") -> TrainState:
     """Train `stage` (first, second or finetune) with `config` (a Config, or
-    a config file's path); at most `max_steps` steps when given."""
+    a config file's path); at most `max_steps` steps when given. Under a
+    launcher, as one rank of a data-parallel group on `device`'s type
+    (`parallel/ddp.py`)."""
     if stage not in CKPT_PREFIX:
         raise ValueError(f"unknown stage {stage!r}: one of {sorted(CKPT_PREFIX)}")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"run_stage: device {device}: no CUDA device is available")
+    if ddp.launched():
+        device = ddp.init(device.type)
+    lead = ddp.rank() == 0
     cfg = config_from_path(config) if isinstance(config, str) else config
     log_dir = cfg.log_dir
-    logger = get_logger(log_dir)
-    if isinstance(config, str):
-        config_copy = os.path.join(log_dir, os.path.basename(config))
+    logger = get_logger(log_dir, rank=ddp.rank())
+    if ddp.launched():
+        logger.info(f"data-parallel: rank {ddp.rank()} of {ddp.world()} on {device}, backend "
+                    f"{ddp.backend()}, global batch {cfg.batch_size}")
+    config_copy = os.path.join(log_dir, os.path.basename(config) if isinstance(config, str)
+                               else "config.yml")
+    if lead and isinstance(config, str):
         shutil.copy(config, config_copy)
-    else:
-        config_copy = os.path.join(log_dir, "config.yml")
+    elif lead:
         with open(config_copy, "w") as f:
             json.dump(dataclasses.asdict(cfg), f, indent=2)
     state, train_loader, val_loader = setup(cfg, device, logger, stage)
@@ -156,27 +200,33 @@ def run_stage(stage: str, config: Union[Config, str], max_steps: Optional[int] =
     start(stage, cfg, state, logger)
     trainer = TRAINERS[stage](cfg, state, device)
     epochs = cfg.epochs_1st if stage == "first" else cfg.epochs_2nd
-    writer, saver = MetricsWriter(log_dir), AsyncSaver()
+    writer, saver, timer = MetricsWriter(log_dir, enabled=lead), AsyncSaver(), StepTimer()
     debug_nan = os.environ.get("STYLETTS2_DEBUG_NAN") == "1"
+    trace_step = int(os.environ.get("STYLETTS2_TRACE_STEP", "0"))
+    n_batches = -ddp.max_over_ranks([-len(train_loader)])[0]  # every rank takes as many steps
     rng = np.random.default_rng(1)
     iters = 0
     try:
         for epoch in range(state.epoch, epochs):
-            for batch in train_loader:
-                t0 = time.perf_counter()
-                metrics = trainer.train_step(batch, epoch, iters, rng)  # ends in a host sync
-                dt = time.perf_counter() - t0
+            for i, batch in enumerate(train_loader):
+                if i >= n_batches:
+                    break
+                with trace(os.path.join(log_dir, "traces"), lead and iters + 1 == trace_step):
+                    timer.start()
+                    metrics = trainer.train_step(batch, epoch, iters, rng)  # ends in a host sync
+                    dt = timer.stop()
+                metrics = ddp.mean_metrics(metrics)
                 if metrics is None:
                     continue
-                if debug_nan and not all(np.isfinite(v) for v in metrics.values()):
+                if debug_nan and not nan_check(metrics, logger):
                     bad = [n for n, p in state.models.named_parameters()
-                           if not bool(torch.isfinite(p).all())]
+                           if not nan_check(p.detach())]
                     logger.error(f"non-finite metrics at epoch {epoch} step {state.step}: "
                                  f"{metrics}; non-finite parameters: {bad[:20]}")
                     raise FloatingPointError(f"NaN/Inf at step {state.step} (STYLETTS2_DEBUG_NAN)")
                 iters += 1
                 if iters % cfg.log_interval == 0:
-                    metrics["step_sec"] = dt
+                    metrics.update(step_sec=dt, step_sec_avg=timer.avg)
                     writer.scalars({f"train/{k}": v for k, v in metrics.items()}, state.step)
                     logger.info(f"epoch {epoch} it {state.step}: "
                                 + " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
@@ -190,13 +240,13 @@ def run_stage(stage: str, config: Union[Config, str], max_steps: Optional[int] =
                             + " ".join(f"{k} {v:.4f}" for k, v in agg.items()))
             write_eval_artifacts(stage, cfg, trainer, val_loader, writer, epoch, rng, logger)
             state.epoch = epoch + 1
-            if state.epoch % cfg.save_freq == 0:
+            if state.epoch % cfg.save_freq == 0 and lead:
                 saver.save(os.path.join(log_dir, f"{prefix}{state.epoch:05d}.pth"), state)
             if max_steps and iters >= max_steps:
                 break
-        if stage == "first":
+        if stage == "first" and lead:
             save_checkpoint(os.path.join(log_dir, cfg.first_stage_path), state)
-        else:
+        elif lead:
             line = write_sigma_data(config_copy, state.sigma_data)
             logger.info(f"sigma_data {state.sigma_data!r} written into {config_copy}: {line}"
                         if line else f"{config_copy} has no sigma_data line: left as it is")
@@ -204,6 +254,7 @@ def run_stage(stage: str, config: Union[Config, str], max_steps: Optional[int] =
     finally:
         saver.close()
         writer.close()
+    ddp.barrier()
     return state
 
 
@@ -284,7 +335,10 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
     set_f32_compute()
-    run_stage(args.stage, args.config_path, args.max_steps, args.device)
+    try:
+        run_stage(args.stage, args.config_path, args.max_steps, args.device)
+    finally:
+        ddp.finish()
 
 
 if __name__ == "__main__":

@@ -24,6 +24,14 @@ generator. A step's parts run under the profiler ranges `forward`,
 (`tools/profile_torch_train.py` reads them). With `mixed_precision: bf16`
 the step's style encoder, decoder, WavLM and discriminators run in bf16
 (`train/mp.py`); validation stays f32, as in the JAX trainer.
+
+As one rank of a data-parallel group (`parallel/ddp.py`) a step computes
+the global batch's: the batch padded to the global shapes, the clip length
+and the host draws taken over the global batch's lengths (this rank's rows
+of them), and the gradients averaged over the ranks before each optimizer
+step. The draws of the step's generator and dropout come from each rank's
+own stream (`ddp.rank_seed`): the same distributions as one process's, not
+its values.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ from styletts2_tpu_torch.models.layers import commit_spectral_updates
 from styletts2_tpu_torch.models.wavlm import resample_24k_to_16k
 from styletts2_tpu_torch.ops.align import maximum_path
 from styletts2_tpu_torch.ops.stft import log_norm, preprocess_mel
+from styletts2_tpu_torch.parallel import ddp
 from styletts2_tpu_torch.train.mp import casts_once, enabled, run
 from styletts2_tpu_torch.train.state import TrainState, step_modules
 
@@ -54,6 +63,15 @@ D_KEYS = ("msd", "mpd")
 def clip_slice(x: torch.Tensor, starts: Sequence[int], length: int) -> torch.Tensor:
     """x (B, ..., T) -> (B, ..., length), item b starting at starts[b]."""
     return torch.stack([x[b, ..., int(s): int(s) + length] for b, s in enumerate(starts)])
+
+
+def global_rows(batch: Batch):
+    """(the batch padded to the global batch's shapes, the global batch's mel
+    lengths, this rank's rows of the global batch); one process: (the batch,
+    its lengths, all rows)."""
+    batch = ddp.pad_batch(batch)
+    b = len(batch.mel_lengths)
+    return batch, ddp.gather_host(batch.mel_lengths), slice(ddp.rank() * b, (ddp.rank() + 1) * b)
 
 
 def clip_length(cfg: Config, mel_lengths: np.ndarray) -> Optional[int]:
@@ -149,16 +167,18 @@ class Stage1Trainer:
                    rng: np.random.Generator) -> Optional[Dict[str, float]]:
         """One step (`iters`, the run's step count, is unused: stage 1 has no
         every-n-steps update)."""
+        batch, mel_lengths, own = global_rows(batch)
         cfg, m, opts = self.cfg, self.models, self.state.opts
         tma = epoch >= cfg.loss_params.TMA_epoch
         use_mono = bool(rng.integers(0, 2))
-        clip_len = clip_length(cfg, batch.mel_lengths)
+        clip_len = clip_length(cfg, mel_lengths)
         if clip_len is None:
             return None  # too short a batch: the reference skips it
-        half = batch.mel_lengths // 2
-        starts = rng.integers(0, np.maximum(half - clip_len, 1)).astype(np.int64)
-        st_starts = rng.integers(0, np.maximum(half - clip_len, 1)).astype(np.int64)
-        gen = torch.Generator(self.device).manual_seed(int(rng.integers(0, 2 ** 31)))
+        half = mel_lengths // 2
+        starts = rng.integers(0, np.maximum(half - clip_len, 1)).astype(np.int64)[own]
+        st_starts = rng.integers(0, np.maximum(half - clip_len, 1)).astype(np.int64)[own]
+        seed = ddp.rank_seed(int(rng.integers(0, 2 ** 31)))  # this rank's own stream
+        gen = torch.Generator(self.device).manual_seed(seed)
         g_keys = GEN_KEYS + (TMA_KEYS if tma else ())
         self._modes(True, g_keys)
         with record_function("forward"):
@@ -177,6 +197,7 @@ class Stage1Trainer:
                 d_loss = L.discriminator_adv_loss(run(m, "mpd", self.mp, wav_clip, y_d),
                                                   run(m, "msd", self.mp, wav_clip, y_d))
                 d_loss.backward()
+                ddp.all_reduce_grads(m[k] for k in D_KEYS)
                 step_modules(m, opts, D_KEYS)
                 for k in D_KEYS:
                     m[k].requires_grad_(False)
@@ -189,6 +210,7 @@ class Stage1Trainer:
         with record_function("backward"):
             g_loss.backward()
         with record_function("optimizer"):
+            ddp.all_reduce_grads(m[k] for k in g_keys)
             step_modules(m, opts, g_keys)
             commit_spectral_updates(m["style_encoder"])
         metrics["g_loss"] = g_loss

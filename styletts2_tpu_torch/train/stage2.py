@@ -44,6 +44,13 @@ WavLM and discriminators compute in bf16 (`train/mp.py`); the styles that
 enter the predictor, the diffusion and the losses are upcast to f32, the
 acoustic clip style reaches the decoder in bf16, and the WavLM
 discriminator's head stays f32. Validation stays f32, as in the JAX trainer.
+
+As one rank of a data-parallel group (`parallel/ddp.py`) a step computes
+the global batch's, as stage 1's does (`stage1.global_rows`); the SLM pass
+takes the first slm-batch rows of the global batch, gathered from the
+ranks and split evenly over them (`_slm_rows`), its loss's sums taken over
+the ranks; the predictor's gradient norm is the averaged gradient's, and
+the sigma_data estimate the global batch's mean.
 """
 
 from __future__ import annotations
@@ -65,8 +72,10 @@ from styletts2_tpu_torch.models.diffusion.sampler import (kdiffusion_loss, make_
 from styletts2_tpu_torch.models.layers import commit_spectral_updates
 from styletts2_tpu_torch.models.wavlm import resample_24k_to_16k
 from styletts2_tpu_torch.ops.stft import log_norm, preprocess_mel
+from styletts2_tpu_torch.parallel import ddp
 from styletts2_tpu_torch.train.mp import casts_once, enabled, run
-from styletts2_tpu_torch.train.stage1 import D_KEYS, HOP, aligner_pass, clip_length, clip_slice
+from styletts2_tpu_torch.train.stage1 import (D_KEYS, HOP, aligner_pass, clip_length, clip_slice,
+                                              global_rows)
 from styletts2_tpu_torch.train.state import TrainState, drop_bias_hh_grads, step_modules
 from styletts2_tpu_torch.utils import duration_to_alignment
 
@@ -160,11 +169,11 @@ class Stage2Trainer:
             "ref_waves": dev(batch.ref_waves, torch.float32), "ref_mel_lengths": dev(ref_mel_lengths),
         }
 
-    def slm_shapes(self, batch_size: int):
-        """(clip frames, alignment frames, batch) of the SLM pass."""
+    def slm_frames(self):
+        """(clip frames, alignment frames) of the SLM pass."""
         sa = self.cfg.slmadv_params
         clip = sa.min_len // 2
-        return clip, max(sa.max_len, 2 * clip + 40), max(2, int(batch_size * sa.batch_percentage))
+        return clip, max(sa.max_len, 2 * clip + 40)
 
     def _bert(self, tokens, lengths):
         valid = (torch.arange(tokens.shape[1], device=tokens.device)[None, :]
@@ -273,23 +282,42 @@ class Stage2Trainer:
         return g_loss, y_rec, metrics, aux
 
     # ------------------------------------------------------------------
+    def _slm_rows(self, t, aux):
+        """This rank's rows of the SLM pass, the first K (the slm batch) of
+        the global batch split evenly over the ranks: {name: its rows} of
+        the batch and the step's aux. One process: the first K rows."""
+        sa = self.cfg.slmadv_params
+        K = max(2, int(len(t["tokens"]) * ddp.world() * sa.batch_percentage))
+        n = ddp.local_batch_size(K, ddp.world())
+        first = ddp.rank() * n
+
+        def rows(x):
+            return None if x is None else ddp.gather_rows(x.detach())[first: first + n]
+
+        out = {k: rows(t[k]) for k in ("ref_tokens", "ref_lengths", "mel_lengths", "waves")}
+        out.update({k: rows(aux[k]) for k in ("s_trg", "feats", "y_rec_gt_pred")})
+        return out
+
     def slm_generator_loss(self, t, aux, num_steps: int, use_ind: bool, sigma_data: float,
                            generator: Optional[torch.Generator] = None):
-        """The SLM-adversarial generator loss over the first slm batch items:
-        (loss, y_pred (K, clip * 600), valid (K,) bool). The style is the
-        batch's own when `use_ind`, else sampled from the reference texts'
-        PL-BERT; an item counts when its predicted total and its utterance's
-        half length both exceed the clip."""
+        """The SLM-adversarial generator loss over the first slm batch items
+        (this rank's share of them, `_slm_rows`): (loss, y_pred (K, clip *
+        600), valid (K,) bool). The style is the batch's own when `use_ind`,
+        else sampled from the reference texts' PL-BERT; an item counts when
+        its predicted total and its utterance's half length both exceed the
+        clip."""
         cfg, m = self.cfg, self.models
-        slm_clip, slm_frames, K = self.slm_shapes(len(t["tokens"]))
+        r = self._slm_rows(t, aux)
+        slm_clip, slm_frames = self.slm_frames()
+        K = len(r["ref_tokens"])
         sd = cfg.model_params.style_dim
-        ref_tokens, ref_lengths = t["ref_tokens"][:K], t["ref_lengths"][:K]
+        ref_tokens, ref_lengths = r["ref_tokens"], r["ref_lengths"]
         dev = ref_tokens.device
         bert_dur, d_en = self._bert(ref_tokens, ref_lengths)
         if use_ind:
-            s_preds = aux["s_trg"][:K]
+            s_preds = r["s_trg"]
         else:
-            feats = aux["feats"][:K] if aux["feats"] is not None else None
+            feats = r["feats"]
             mask = draw_embedding_mask(K, cfg.model_params.diffusion.embedding_mask_proba,
                                        generator, dev)
             s_preds = self._sample_style(bert_dur, feats, num_steps, sigma_data, mask, generator)
@@ -303,7 +331,7 @@ class Stage2Trainer:
             t_en = m["text_encoder"](ref_tokens, ref_lengths)
         asr_pred = t_en @ attn  # (K, C, F)
         p_pred = d.transpose(1, 2) @ attn
-        gt_half = t["mel_lengths"][:K] // 2
+        gt_half = r["mel_lengths"] // 2
         valid = (total > slm_clip) & (gt_half > slm_clip)
         max_start = torch.clamp(torch.clamp(total, max=slm_frames) - slm_clip, min=1)
         starts = (torch.rand((K,), generator=generator, device=dev) * max_start).long().tolist()
@@ -313,7 +341,8 @@ class Stage2Trainer:
                      generator)
         d_g = m["wd"](L.stack_wavlm_states(run(m, "wavlm", self.mp, resample_24k_to_16k(y_pred))))
         w = valid.float()[:, None]
-        loss = (((1.0 - d_g) ** 2) * w).sum() / torch.clamp(w.sum() * d_g.shape[1], min=1.0)
+        loss = ddp.global_sum((((1.0 - d_g) ** 2) * w).sum()) / torch.clamp(
+            ddp.global_sum(w.sum()) * d_g.shape[1], min=1.0)
         return loss, y_pred, valid
 
     def scale_slm_grads(self) -> None:
@@ -346,16 +375,17 @@ class Stage2Trainer:
         `use_rec`, plus the L1 between its scores of the ground-truth clips
         and of their reconstructions."""
         m = self.models
-        slm_clip, _, K = self.slm_shapes(len(t["tokens"]))
+        r = self._slm_rows(t, aux)
+        slm_clip, _ = self.slm_frames()
         need = slm_clip * 2 * HOP
-        max_start = torch.clamp(t["mel_lengths"][:K] // 2 - slm_clip, min=1)
-        starts = (torch.rand((K,), generator=generator, device=y_pred.device)
+        max_start = torch.clamp(r["mel_lengths"] // 2 - slm_clip, min=1)
+        starts = (torch.rand((len(max_start),), generator=generator, device=y_pred.device)
                   * max_start).long().tolist()
         if use_rec:
-            real = aux["y_rec_gt_pred"][:K, :need]
+            real = r["y_rec_gt_pred"][:, :need]
             real = torch.nn.functional.pad(real, (0, need - real.shape[1]))
         else:
-            real = clip_slice(t["waves"][:K], [2 * HOP * s for s in starts], need)
+            real = clip_slice(r["waves"], [2 * HOP * s for s in starts], need)
 
         def wd_of(x):
             with torch.no_grad():
@@ -365,8 +395,8 @@ class Stage2Trainer:
 
         d_r, d_g = wd_of(real), wd_of(y_pred)
         w = valid.float()[:, None]
-        denom = torch.clamp(w.sum() * d_r.shape[1], min=1.0)
-        loss = ((((1.0 - d_r) ** 2) * w).sum() + ((d_g ** 2) * w).sum()) / denom
+        denom = torch.clamp(ddp.global_sum(w.sum()) * d_r.shape[1], min=1.0)
+        loss = ddp.global_sum((((1.0 - d_r) ** 2) * w).sum() + ((d_g ** 2) * w).sum()) / denom
         if use_rec:  # the reconstruction-invariance regulariser
             loss = loss + (wd_of(aux["y_rec_gt"]) - wd_of(aux["y_rec_gt_pred"])).abs().mean()
         return loss
@@ -375,20 +405,22 @@ class Stage2Trainer:
     @casts_once
     def train_step(self, batch: Batch, epoch: int, iters: int,
                    rng: np.random.Generator) -> Optional[Dict[str, float]]:
+        batch, mel_lengths, own = global_rows(batch)
         cfg, m, opts = self.cfg, self.models, self.state.opts
         lp, sa = cfg.loss_params, cfg.slmadv_params
         diff_on, joint_on = epoch >= lp.diff_epoch, epoch >= lp.joint_epoch
-        clip_len = clip_length(cfg, batch.mel_lengths)
+        clip_len = clip_length(cfg, mel_lengths)
         if clip_len is None:
             return None  # too short a batch: the reference skips it
-        half = batch.mel_lengths // 2
-        starts = rng.integers(0, np.maximum(half - clip_len, 1)).astype(np.int64)
-        st_starts = rng.integers(0, np.maximum(half - clip_len, 1)).astype(np.int64)
+        half = mel_lengths // 2
+        starts = rng.integers(0, np.maximum(half - clip_len, 1)).astype(np.int64)[own]
+        st_starts = rng.integers(0, np.maximum(half - clip_len, 1)).astype(np.int64)[own]
         num_steps = 3 + int(rng.integers(0, 2))
         use_ind = rng.random() < 0.5
         style_of_batch = bool(use_ind and rng.random() < 0.5)
         use_rec = bool(rng.integers(0, 2))
-        gen = torch.Generator(self.device).manual_seed(int(rng.integers(0, 2 ** 31)))
+        seed = ddp.rank_seed(int(rng.integers(0, 2 ** 31)))  # this rank's own stream
+        gen = torch.Generator(self.device).manual_seed(seed)
         sigma_data = self.state.sigma_data
         g_keys = self.gen_keys(diff_on, joint_on)
         self._modes(True, g_keys)
@@ -406,6 +438,7 @@ class Stage2Trainer:
                 d_loss = L.discriminator_adv_loss(run(m, "mpd", self.mp, wav_tgt, y_d),
                                                   run(m, "msd", self.mp, wav_tgt, y_d))
                 d_loss.backward()
+                ddp.all_reduce_grads(m[k] for k in D_KEYS)
                 step_modules(m, opts, D_KEYS)
                 for k in D_KEYS:
                     m[k].requires_grad_(False)
@@ -418,17 +451,19 @@ class Stage2Trainer:
         with record_function("backward"):
             g_loss.backward()
         with record_function("optimizer"):
+            ddp.all_reduce_grads(m[k] for k in g_keys)
             step_modules(m, opts, g_keys)
             for k in STYLE_KEYS:
                 commit_spectral_updates(m[k])
         del g_loss, y_rec
-        new_sigma = aux["s_trg"].std(dim=-1, unbiased=False).mean()
+        new_sigma = ddp.mean(aux["s_trg"].std(dim=-1, unbiased=False).mean())
         if joint_on:
             with record_function("slm"):
                 self._trainable(SLM_KEYS)
                 slm_loss, y_pred, valid = self.slm_generator_loss(t, aux, num_steps, style_of_batch,
                                                                   sigma_data, gen)
                 slm_loss.backward()
+                ddp.all_reduce_grads(m[k] for k in SLM_KEYS)
                 self.scale_slm_grads()
                 step_modules(m, opts, SLM_KEYS)
             metrics.update(slm_gen=slm_loss.detach(), slm_valid_frac=valid.float().mean(),
@@ -439,6 +474,7 @@ class Stage2Trainer:
                     self._trainable(("wd",))
                     wd_loss = self.slm_discriminator_loss(t, y_pred.detach(), aux, valid, use_rec, gen)
                     wd_loss.backward()
+                    ddp.all_reduce_grads([m["wd"]])
                     step_modules(m, opts, ("wd",))
             metrics["slm_d"] = wd_loss
         self._trainable(())

@@ -166,7 +166,8 @@ def _run(code, cwd):
 
 def test_port_imports_no_jax():
     """Importing the port, its server, its demo, its trainers (with
-    `train/mp.py`) and `eval.py`, and running a tiny single-speaker and a tiny multispeaker CPU
+    `train/mp.py`), `eval.py`, the data-parallel module and the Hugging Face
+    WavLM reader, and running a tiny single-speaker and a tiny multispeaker CPU
     synthesis, each with the f32 and the bf16 decoder, loads neither JAX,
     flax, PyYAML, transformers nor the JAX package."""
     code = """
@@ -176,6 +177,8 @@ import styletts2_tpu_torch.demo
 import styletts2_tpu_torch.eval
 import styletts2_tpu_torch.serve
 import styletts2_tpu_torch.train.run
+import styletts2_tpu_torch.parallel.ddp
+from styletts2_tpu_torch.convert import hf_model_dir, read_safetensors, wavlm_from_hf
 from styletts2_tpu_torch.config import Config, libritts_config
 from styletts2_tpu_torch.inference import Synthesizer
 for cfg in (Config(), libritts_config()):
