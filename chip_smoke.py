@@ -132,6 +132,18 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      model.safetensors, pytorch_model.bin) written from seeded weights and
      read on the card by `convert.wavlm_from_hf`, its hidden states equal
      to the module's; phase 20's runs load it ("loaded WavLM")
+ 22. fidelity (`fidelity_phase`): `styletts2_tpu_torch.fidelity.run` at full
+     width, Config() (iSTFTNet, 250 pre-TMA steps at batch 16) and
+     libritts_config() (HiFi-GAN, 60 at batch 8) of 5 s pseudo-speech, f32:
+     48 / 96 K1 and K2 per step, 0 plain-version calls, the mel loss falling
+     (iSTFTNet; HiFi-GAN's printed), the bf16-vs-f32 decoder MCD at random
+     init and trained (iSTFTNet held <= 2.5 dB, HiFi-GAN printed)
+ 23. tensor parallelism (`tp_phase`): two ranks on cuda:0 over gloo at
+     model parallel 2 (`--tp-child` under torch.distributed.run), a
+     full-width stage-1 TMA step and stage-2 joint step at batch 4 each
+     equal to the unlaunched step from the same weights (losses within
+     1e-5, gradients within 3e-2), K1/K2 per rank the unlaunched run's;
+     each rank's parameters, peak memory and step time
 Phase 3 and 9 also check and time K1 and K2 at LibriTTS stage 2's HiFi-GAN
 training shapes (f32). Every number line carries the card's name and power limit. Then a JSON line
 of the kernels (f32 and bf16 times) and, last, {"ok": true, "device": {...}}.
@@ -140,6 +152,7 @@ exits non-zero before printing a result.
 """
 
 import collections
+import contextlib
 import copy
 import dataclasses
 import io
@@ -624,6 +637,13 @@ def training_fixture(root: Path, n: int = 32):
     (root / "train.txt").write_text("\n".join(lines))
     (root / "val.txt").write_text("\n".join(lines[:16]))
     (root / "ood.txt").write_text("\n".join(TRAIN_TEXTS))
+    return fixture_params(root)
+
+
+def fixture_params(root: Path):
+    """The DataParams of the fixture `training_fixture` wrote in `root`."""
+    from styletts2_tpu_torch.config import DataParams
+
     return DataParams(train_data=str(root / "train.txt"), val_data=str(root / "val.txt"),
                       root_path=str(root), OOD_data=str(root / "ood.txt"))
 
@@ -1730,6 +1750,21 @@ LOSS_TOL = 1e-5  # phases 18 and 20: losses against the reference run's, relativ
 WAVLM_TOL = 1e-5  # phase 21: the read WavLM's hidden states against the module's
 
 
+def _full_gradient(module):
+    """The module's gradient flattened in `parameters()` order, zeros where
+    none arrived, every shard gathered to its full tensor (a collective of
+    the model group where the module is sharded)."""
+    from styletts2_tpu_torch.parallel import mesh
+
+    sharded = mesh.sharded_parameters(module)
+    parts = []
+    for n, p in module.named_parameters():
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        parts.append((sharded[n][0].gather(g, sharded[n][1]) if n in sharded else g).detach()
+                     .flatten())
+    return torch.cat(parts)
+
+
 def _spied_step(op, trainer_cls, cfg, models, init, batch, epoch, remat, record=False,
                 follow=None):
     """One `train_step` of `trainer_cls` at `epoch` from the weights `init`
@@ -1741,11 +1776,16 @@ def _spied_step(op, trainer_cls, cfg, models, init, batch, epoch, remat, record=
     parameters after it, on the host}). With `follow`, a recorded run's
     "after", each optimizer step's modules are set to that run's weights
     after it, so that every step's gradient is taken from the same weights
-    as that run's."""
+    as that run's. Modules sharded over a model axis (`parallel/mesh.py`,
+    phase 23) take their slices of `init` and `follow`, and their gradients
+    are gathered (a collective of the model group)."""
+    from styletts2_tpu_torch.parallel import mesh
     from styletts2_tpu_torch.train import stage1, stage2
     from styletts2_tpu_torch.train.state import TrainState, build_optimizers
 
-    models.load_state_dict(init)
+    for key, mod in models.items():
+        mod.load_state_dict(mesh.local_state_dict(mod, {n[len(key) + 1:]: v for n, v in init.items()
+                                                        if n.startswith(key + ".")}))
     models["decoder"].generator.remat = remat
     cfg = copy.deepcopy(cfg)
     cfg.remat_decoder = remat
@@ -1755,17 +1795,19 @@ def _spied_step(op, trainer_cls, cfg, models, init, batch, epoch, remat, record=
     step_modules = module.step_modules
 
     def spy(ms, opts, keys):
-        out["grads"].append({k: torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
-                                           .detach().flatten() for p in ms[k].parameters()]).cpu()
-                             for k in keys})
+        out["grads"].append({k: _full_gradient(ms[k]).cpu() for k in keys})
         step_modules(ms, opts, keys)
         if record:
-            out["after"].append({k: [p.detach().cpu() for p in ms[k].parameters()] for k in keys})
+            out["after"].append({k: [p.detach().to("cpu", copy=True) for p in ms[k].parameters()]
+                                 for k in keys})
         if follow is not None:
             with torch.no_grad():
                 for k in keys:
-                    for p, q in zip(ms[k].parameters(), follow[len(out["grads"]) - 1][k]):
-                        p.copy_(q)
+                    names = [n for n, _ in ms[k].named_parameters()]
+                    full = dict(zip(names, follow[len(out["grads"]) - 1][k]))
+                    local = mesh.local_state_dict(ms[k], full)
+                    for n, p in ms[k].named_parameters():
+                        p.copy_(local[n])
 
     def decoder_run(mod, args):
         out["runs"][0] += 1
@@ -2130,6 +2172,254 @@ def ddp_wavlm_phase(op, build_dir, smi, dev):
     torch.cuda.empty_cache()
     return launches
 
+# phase 22: pre-TMA steps and batch of each config, 5 s clips. iSTFTNet's
+# bf16-vs-f32 MCD is still chaos at 60 steps of 8 (2.99 dB), stays near 2.4
+# dB at batch 8 from step 150 on, and at batch 16 falls through the 2.5 dB
+# bound between steps 100 and 150, to 2.03-2.42 at 250 (2.2827 with the
+# tool's seeded, deterministic run; PERF.md §6); HiFi-GAN's mel loss
+# plateaus or rises as its tanh head clips, so more steps add nothing
+FIDELITY_RUNS = {"ljspeech": (250, 16), "libritts": (60, 8)}
+TP_BATCH = 4  # phase 23: the unlaunched step and two ranks' steps fit one card together
+MEDIAN_GRID = 1e-4  # phase 23: TPRLS's median picked on values rounded to this
+
+
+def fidelity_phase(op, smi):
+    """Phase 22: trained-weights fidelity at full width through
+    `styletts2_tpu_torch.fidelity.run`: Config() (iSTFTNet) and
+    libritts_config() (HiFi-GAN), FIDELITY_RUNS' pre-TMA steps and batches
+    (250 at 16, 60 at 8) of 5 s pseudo-speech clips, f32, TF32 off. Every step
+    launches 48 / 96 K1 and as many K2 (each counted around its
+    `train_step`), 0 plain-version calls; the losses are finite and the
+    mean of the last 10 mel losses is below the first 10's; the
+    bf16-vs-f32 decoder MCD on the held-out batch at random init, every 125
+    steps and trained, held <= MCD_BOUND for iSTFTNet and printed for
+    HiFi-GAN (the 50-step curves come from the 300- and 600-step runs of
+    the module, PERF.md §6); the share of output samples at |y| >= 0.99.
+    Returns (K1, K2) launches, the MCD evaluations' included."""
+    from styletts2_tpu_torch import fidelity
+    from styletts2_tpu_torch.train.stage1 import Stage1Trainer
+
+    launches = [0, 0]
+    for config, per_step in (("ljspeech", CALLS_PER_DECODE), ("libritts", CALLS_PER_HIFIGAN_DECODE)):
+        steps, train_step = [], Stage1Trainer.train_step
+
+        def counted(self, *a, **k):
+            k1, k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
+            out = train_step(self, *a, **k)
+            steps.append((op.adain_snake.launches - k1, op.adain_snake.bwd_launches - k2))
+            return out
+
+        t0 = time.perf_counter()
+        k1, k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
+        Stage1Trainer.train_step = counted
+        try:
+            with _Tally(op) as tally:
+                r = fidelity.run(config, *FIDELITY_RUNS[config], device="cuda", mcd_every=125,
+                                 log=lambda m: print(f"[22 fidelity] {m} [{smi}]", flush=True))
+        finally:
+            Stage1Trainer.train_step = train_step
+        launches[0] += op.adain_snake.launches - k1
+        launches[1] += op.adain_snake.bwd_launches - k2
+        torch.cuda.empty_cache()
+        curve = ", ".join(f"{n}: {v:.4f}" for n, v in r["bf16_vs_f32_mcd_dB_curve"])
+        print(f"[22 fidelity] {config} full width, {r['steps']} pre-TMA steps at batch "
+              f"{r['batch']} of {r['wav_len']}-sample clips: mel first 10 "
+              f"{r['mel_loss_first10']:.4f} -> last 10 {r['mel_loss_last10']:.4f} "
+              f"({r['mel_loss_drop_pct']:.1f}% drop); bf16-vs-f32 MCD random init "
+              f"{r['bf16_vs_f32_mcd_dB_random_init']:.4f} dB, trained "
+              f"{r['bf16_vs_f32_mcd_dB_trained']:.4f} dB (per item "
+              f"{', '.join(f'{x:.3f}' for x in r['bf16_vs_f32_mcd_dB_trained_per_item'])}); curve "
+              f"{curve}; output samples at |y| >= 0.99: {r['saturated_share_random_init']:.4f} "
+              f"at random init, {r['saturated_share_trained']:.4f} trained; step {r['step_ms_median']:.1f} ms median, peak {r['peak_gib']:.2f} GiB; K1/K2 "
+              f"per step {sorted(set(steps))}, {tally.plain} plain-version calls; "
+              f"{time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+        if len(steps) != r["steps"] or set(steps) != {(per_step, per_step)} or tally.plain:
+            raise RuntimeError(f"[22 fidelity] {config}: launches per step {sorted(set(steps))} "
+                               f"(want {per_step} each), {tally.plain} plain-version calls")
+        if not (np.isfinite(r["mel_losses"]).all() and len(r["mel_losses"]) == r["steps"]):
+            raise RuntimeError(f"[22 fidelity] {config}: mel losses {r['mel_losses']}")
+        if not r["mel_loss_last10"] < r["mel_loss_first10"]:
+            raise RuntimeError(f"[22 fidelity] {config}: the mel loss did not fall: {r['mel_losses']}")
+        if not np.isfinite(r["bf16_vs_f32_mcd_dB_trained"]) or (
+                config == "ljspeech" and r["bf16_vs_f32_mcd_dB_trained"] > MCD_BOUND):
+            raise RuntimeError(f"[22 fidelity] {config}: trained bf16-vs-f32 MCD "
+                               f"{r['bf16_vs_f32_mcd_dB_trained']} dB (bound {MCD_BOUND} iSTFTNet)")
+    return launches
+
+
+@contextlib.contextmanager
+def _rounding_stable():
+    """Phase 23's comparison of steps that round otherwise (a sharded
+    matmul's partial sums), the source's chaotic parts taken out as
+    `_host_draws` takes them out: the NSF source's harmonic sines zeroed
+    and its noise kept (`_noise_source`: their phase, a cumulative sum of
+    F0 over a 5 s clip, turns a 3e-6 change of the predicted F0 into a
+    change of the Generator's activations that moves the SLM pass's
+    gradients by 1-7e-2) and the STFT phase zeroed (atan2 of ~0-magnitude
+    bins flips under any rounding, tests/torch_parity.py); TPRLS's lower
+    median picked on values rounded to MEDIAN_GRID (its middle two elements
+    can lie within rounding of each other, tests/test_torch_ddp.py); and
+    cuDNN's deterministic algorithms, so that the runs differ by the
+    sharding's rounding alone and not by the order of a convolution
+    backward's atomic sums too."""
+    import styletts2_tpu_torch.models.decoder_istft as pdi
+
+    magphase, median, sines = pdi.stft_magphase, torch.median, pdi.SineGen.forward
+    cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+    def zero_phase(*a):
+        mag, phase = magphase(*a)
+        return mag, torch.zeros_like(phase)
+
+    def rounded(x, *a, **k):
+        if a or k:
+            return median(x, *a, **k)
+        flat = x.reshape(-1)
+        return flat[median(torch.round(flat.detach() / MEDIAN_GRID), dim=0).indices]
+
+    pdi.stft_magphase, torch.median, pdi.SineGen.forward = zero_phase, rounded, _noise_source
+    try:
+        yield
+    finally:
+        pdi.stft_magphase, torch.median, pdi.SineGen.forward = magphase, median, sines
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = cudnn
+
+
+def _tp_cases(cfg):
+    from styletts2_tpu_torch.train.stage1 import Stage1Trainer
+    from styletts2_tpu_torch.train.stage2 import Stage2Trainer
+
+    return (("stage-1 TMA", Stage1Trainer, cfg.loss_params.TMA_epoch),
+            ("stage-2 joint", Stage2Trainer, cfg.loss_params.joint_epoch))
+
+
+def _tp_setup(data_root):
+    """Phase 23's config (Config() on the fixture in `data_root`, wd every
+    step), modules from seed 0 on the card, their weights on the host, batch."""
+    from styletts2_tpu_torch.config import Config
+    from styletts2_tpu_torch.models.build import build_training_models
+
+    cfg = Config()
+    cfg.data_params, cfg.slmadv_params.iter = fixture_params(data_root), 1
+    models = build_training_models(cfg, torch.Generator().manual_seed(0), "second").cuda()
+    init = {k: v.detach().cpu().clone() for k, v in models.state_dict().items()}
+    return cfg, models, init, _fixture_batch(cfg.data_params, TP_BATCH)
+
+
+def tp_phase(op, build_dir, smi):
+    """Phase 23: tensor parallelism. Config() at full width, batch TP_BATCH:
+    the unlaunched stage-1 TMA step and stage-2 joint step (model parallel
+    1), then `python -m torch.distributed.run --nproc_per_node 2
+    chip_smoke.py --tp-child` with STYLETTS2_TPU_MODEL_PARALLEL=2: two ranks
+    on cuda:0 over gloo (NCCL refuses two ranks on one device; the model
+    group's collectives and the checkpoint gather are all_reduce, which
+    gloo runs on CUDA tensors), model parallel 2, data 1. Each rank takes
+    each step from the same weights as the unlaunched run (every optimizer
+    step's modules set to its weights after it, phase 18's `follow`), the
+    NSF source's STFT phase zeroed and TPRLS's median on rounded values on
+    both sides (`_rounding_stable`): the ranks' losses equal, within
+    LOSS_TOL of the unlaunched run's, every optimizer step's gradients
+    (gathered) within GRAD_TOL; each rank's K1/K2 launches the unlaunched
+    run's, 0 plain-version calls; each rank's parameters, peak memory and
+    step time beside the unlaunched run's. Returns (K1, K2) launches."""
+    start = time.perf_counter()
+    launches = [0, 0]
+    with tempfile.TemporaryDirectory(dir=build_dir) as tdir:
+        tdir = Path(tdir)
+        training_fixture(tdir / "data", n=TP_BATCH)
+        cfg, models, init, batch = _tp_setup(tdir / "data")
+        total = sum(p.numel() for p in models.parameters())
+        refs = {}
+        with _rounding_stable():
+            for name, trainer_cls, epoch in _tp_cases(cfg):
+                ref = _spied_step(op, trainer_cls, cfg, models, init, batch, epoch, False, record=True)
+                torch.save(ref.pop("after"), tdir / f"follow_{name.replace(' ', '_')}.pt")
+                refs[name] = ref
+        del models, init
+        torch.cuda.empty_cache()
+        env = dict(os.environ, STYLETTS2_TPU_MODEL_PARALLEL="2")
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                              "--nproc_per_node", "2", str(REPO / "chip_smoke.py"), "--tp-child",
+                              str(tdir)], cwd=REPO, env=env, capture_output=True, text=True,
+                             timeout=900)
+        if res.returncode:
+            raise RuntimeError(f"[23 tp] ranks: exit {res.returncode}\n{res.stdout[-2000:]}\n"
+                               f"{res.stderr[-4000:]}")
+        wall = time.perf_counter() - t0
+        ranks = [torch.load(tdir / f"tp_rank{r}.pt", weights_only=False) for r in range(2)]
+        print(f"[23 tp] model parallel 2 on one card (gloo, cuda:0 twice), data 1, batch {TP_BATCH}: "
+              f"{ranks[0]['sharded']} layers sharded; parameters {total} unlaunched, "
+              f"{', '.join(str(r['params']) for r in ranks)} per rank "
+              f"({2 * (total - ranks[0]['params'])} "
+              f"sharded in halves); the ranks' run {wall:.1f} s wall [{smi}]", flush=True)
+        for name, _, _ in _tp_cases(cfg):
+            ref, got = refs[name], [r[name] for r in ranks]
+            rel = {k: abs(got[0]["metrics"][k] - v) / max(abs(v), 1e-6)
+                   for k, v in ref["metrics"].items()}
+            g_err = [max(float((a[k] - b[k]).norm() / max(float(b[k].norm()), 1e-30)) for k in b)
+                     for a, b in zip(got[0]["grads"], ref["grads"])]
+            for g in got:
+                launches[0] += g["k1"]
+                launches[1] += g["k2"]
+            runs, trained = ref["runs"]
+            print(f"[23 tp] {name}: losses rel err {max(rel.values()):.2e} (tol {LOSS_TOL:g}); "
+                  f"gradient L2 rel err per optimizer step {', '.join(f'{e:.2e}' for e in g_err)} "
+                  f"(tol {GRAD_TOL:g}); K1/K2 per rank {[(g['k1'], g['k2']) for g in got]}, "
+                  f"unlaunched {ref['k1']}/{ref['k2']} for {runs} decoder runs; peak "
+                  f"{', '.join(f'{g['peak'] / 2 ** 30:.2f}' for g in got)} GiB per rank, unlaunched "
+                  f"{ref['peak'] / 2 ** 30:.2f}; step {', '.join(f'{g['ms']:.1f}' for g in got)} ms "
+                  f"per rank (two ranks share the card), unlaunched {ref['ms']:.1f} ms [{smi}]",
+                  flush=True)
+            if got[0]["metrics"] != got[1]["metrics"] or max(rel.values()) > LOSS_TOL or \
+                    len(g_err) != len(ref["grads"]) or max(g_err) > GRAD_TOL or \
+                    any(g["plain"] or (g["k1"], g["k2"]) != (ref["k1"], ref["k2"]) for g in got) or \
+                    ref["plain"] or ref["k1"] != runs * CALLS_PER_DECODE or not ref["k2"] or \
+                    not all(np.isfinite(v) for v in got[0]["metrics"].values()):
+                raise RuntimeError(f"[23 tp] {name}: {rel}, {g_err}, "
+                                   f"{[(g['k1'], g['k2'], g['plain']) for g in got]}, {ref['k1']}")
+    torch.cuda.empty_cache()
+    print(f"[23 tp] phase 23 in {time.perf_counter() - start:.1f} s wall [{smi}]", flush=True)
+    return launches
+
+
+def tp_child(argv):
+    """`chip_smoke.py --tp-child DIR` as one rank of phase 23 under
+    torch.distributed.run: gloo on cuda:0, the mesh of
+    STYLETTS2_TPU_MODEL_PARALLEL, phase 23's modules sharded, each case's
+    step following the unlaunched run's weights in DIR; writes
+    DIR/tp_rank{r}.pt (rank 0 adds the gathered gradients)."""
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+
+    from styletts2_tpu_torch.ops import adain_snake as op
+    from styletts2_tpu_torch.parallel import mesh
+    from styletts2_tpu_torch.utils import set_f32_compute
+
+    set_f32_compute()
+    tdir = Path(argv[0])
+    torch.cuda.set_device(0)  # both ranks on the one card: gloo, not NCCL
+    dist.init_process_group("gloo")
+    try:
+        rank = dist.get_rank()
+        mesh.make_mesh(dist.get_world_size(), mesh.model_parallel_from_env())
+        cfg, models, init, batch = _tp_setup(tdir / "data")
+        out = {"sharded": len(mesh.shard_(models)),
+               "params": sum(p.numel() for p in models.parameters())}
+        with _rounding_stable():
+            for name, trainer_cls, epoch in _tp_cases(cfg):
+                follow = torch.load(tdir / f"follow_{name.replace(' ', '_')}.pt", weights_only=False)
+                r = _spied_step(op, trainer_cls, cfg, models, init, batch, epoch, False, follow=follow)
+                out[name] = {k: r[k] for k in ("metrics", "k1", "k2", "plain", "ms", "peak", "runs")}
+                if rank == 0:
+                    out[name]["grads"] = r["grads"]
+                del follow, r
+        torch.save(out, tdir / f"tp_rank{rank}.pt")
+    finally:
+        mesh.reset()
+        dist.destroy_process_group()
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2273,6 +2563,8 @@ def main():
     remat_k1, remat_k2 = remat_phase(op, build_dir, smi)  # 18
     lt2_k1, lt2_k2 = libritts_stage2_phase(op, build_dir, smi, dev)  # 19
     ddp_k1, ddp_k2 = ddp_wavlm_phase(op, build_dir, smi, dev)  # 20, 21
+    fid_k1, fid_k2 = fidelity_phase(op, smi)  # 22
+    tp_k1, tp_k2 = tp_phase(op, build_dir, smi)  # 23
 
     def row(t, shape, dtype):
         return {"shape": list(shape), "dtype": dtype, "ms": t["cold"][0], "plain_ms": t["cold"][1],
@@ -2286,7 +2578,7 @@ def main():
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:38",
         "launches": lj.launches + lt.launches + sv.launches + train_k1 + stage2_k1 + bf16_k1 + mp_k1
-        + ref_k1 + remat_k1 + lt2_k1 + ddp_k1,
+        + ref_k1 + remat_k1 + lt2_k1 + ddp_k1 + fid_k1 + tp_k1,
         "max_abs_err": max_err["float32"],
         "ms": fwd["cold"][0], "plain_ms": fwd["cold"][1], "bound_ms": fwd["bound"],
         "bound_by": "bytes", "library_ms": None, "shape": list(fwd_shape),
@@ -2296,7 +2588,7 @@ def main():
         "name": "adain_snake_bwd", "route": "cuda",
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:117",
-        "launches": train_k2 + stage2_k2 + mp_k2 + remat_k2 + lt2_k2 + ddp_k2,
+        "launches": train_k2 + stage2_k2 + mp_k2 + remat_k2 + lt2_k2 + ddp_k2 + fid_k2 + tp_k2,
         "max_abs_err": bwd_err["float32"],
         "ms": bwd["cold"][0], "plain_ms": bwd["cold"][1], "bound_ms": bwd["bound"],
         "bound_by": "bytes", "library_ms": None, "shape": list(bwd_shape),
@@ -2311,5 +2603,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--train-child"]:
         train_child(sys.argv[2:])
+    elif sys.argv[1:2] == ["--tp-child"]:
+        tp_child(sys.argv[2:])
     else:
         main()

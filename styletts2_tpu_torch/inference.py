@@ -45,6 +45,16 @@ FRAME_BUCKET = 100
 DECODER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def decode(decoder: torch.nn.Module, asr: torch.Tensor, F0: torch.Tensor, N: torch.Tensor,
+           ref: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The decode stage's call in the dtype of the decoder's weights: the
+    aligned text features and the acoustic style cast to it, F0 and N
+    handed as they are (the source and the normalisation are f32 islands);
+    an f32 waveform back. The fidelity tool's bf16 decodes go through it."""
+    dd = next(decoder.parameters()).dtype
+    return decoder(asr.to(dd), F0, N, ref.to(dd), generator=generator).float()
+
+
 def _bucket(n: int, step: int, minimum: int) -> int:
     return max(minimum, ((n + step - 1) // step) * step)
 
@@ -266,6 +276,5 @@ class Synthesizer:
                 asr = torch.cat([asr[..., :1], asr[..., :-1]], dim=-1)
             F0, N = m["predictor"].F0Ntrain(en, s)
         with record_function("decode"):
-            dd = self.decoder_dtype
-            wavs = m["decoder"](asr.to(dd), F0, N, ref.to(dd), generator=gen).float().cpu().numpy()
+            wavs = decode(m["decoder"], asr, F0, N, ref, gen).cpu().numpy()
         return _Batch(wavs, torch.cat([ref, s], dim=-1).cpu().numpy(), pred_dur)

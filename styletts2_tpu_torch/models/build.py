@@ -123,7 +123,7 @@ def build_training_models(cfg: Config, generator: Optional[torch.Generator] = No
     STAGE2_MODULES (bert, bert_encoder, predictor, predictor_encoder,
     diffusion and the WavLM discriminator wd; both style encoders whether
     or not the config is multispeaker). Each takes the JAX package's init
-    distributions, drawn from `generator` in that order, so the stage-1
+    distributions (but for `_init_weights`' one departure), drawn from `generator` in that order, so the stage-1
     modules get the same weights at every stage."""
     if stage not in ("first", "second", "finetune"):
         raise ValueError(f"unknown stage {stage!r}")
@@ -175,7 +175,16 @@ def _init_weights(root: nn.Module, generator: Optional[torch.Generator] = None) 
     except PL-BERT's positional tables N(0, 0.02) and the denoiser's fixed
     embedding and Fourier weights N(0, 1); spectral-norm convs U(+-1/sqrt(fan_in))
     with their (u, v) aligned to the weight's top singular vectors. Norm
-    scales and snake alphas keep their constructor values (ones / zeros)."""
+    scales and snake alphas keep their constructor values (ones / zeros).
+
+    One departure from the JAX init: the HiFi-GAN Generator's weight-norm
+    convs take g = ||v||, so that w = v at init, as in the reference (its
+    `init_weights` runs after `weight_norm` and so changes nothing: torch
+    computes w from g = ||v|| before every forward). With g = 1 each conv's
+    rows have norm 1, ~1.7x more, and at full width half the Generator's
+    output samples sit in its tanh head's saturation, where pre-TMA training
+    cannot lower the mel loss. The draws are the same, so every other
+    weight is too."""
     g = generator
 
     def uniform(t, bound):
@@ -228,6 +237,11 @@ def _init_weights(root: nn.Module, generator: Optional[torch.Generator] = None) 
         elif isinstance(mod, Transformer1d):
             normal_(mod.fixed_embedding.embedding.weight, 1.0)
             lecun_(mod.to_out[1])  # a dense layer in the JAX package
+        elif isinstance(mod, decoder_hifigan.Generator):
+            for conv in mod.modules():
+                if isinstance(conv, (WNConv1d, WNConvTranspose1d)):
+                    v = conv.weight_v
+                    conv.weight_g.copy_(v.norm(dim=tuple(range(1, v.dim())), keepdim=True))
 
 
 

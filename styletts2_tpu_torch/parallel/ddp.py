@@ -32,6 +32,12 @@ concatenated, rank r holding global rows [r * b, (r + 1) * b):
 Rank 0 alone writes logs, metrics, checkpoints and eval artifacts. Every
 rank runs validation and the eval artifacts on the same (unsharded) data:
 their global sums add equal terms, and a ratio of them is one process's.
+
+With tensor parallelism (`parallel/mesh.py`, STYLETTS2_TPU_MODEL_PARALLEL
+= k) the world is a (world // k, k) mesh: "ranks" above are the data
+axis's. `rank()` and `world()` are this rank's data index and the data
+axis's size, every collective here runs over this rank's data group (the
+ranks that hold the same shards), and global rank 0 alone writes (`lead`).
 """
 
 from __future__ import annotations
@@ -45,18 +51,39 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
+from styletts2_tpu_torch.parallel import mesh
+
 
 def active() -> bool:
-    """Whether this process is one rank of a data-parallel group of 2 or more."""
-    return dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+    """Whether this process is one rank of a data axis of 2 or more."""
+    return world() > 1
 
 
 def world() -> int:
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    """The data axis's size: the ranks whose batches make the global batch."""
+    return mesh.current().data
 
 
 def rank() -> int:
+    """This rank's index on the data axis (its rows of the global batch)."""
+    return mesh.current().data_rank
+
+
+def global_rank() -> int:
     return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def global_world() -> int:
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def lead() -> bool:
+    """Whether this is global rank 0, the one that writes."""
+    return global_rank() == 0
+
+
+def _group():
+    return mesh.current().data_group
 
 
 def launched() -> bool:
@@ -113,7 +140,7 @@ def gather_host(a: np.ndarray) -> np.ndarray:
         return np.asarray(a)
     t = torch.from_numpy(np.ascontiguousarray(a)).to(_device())
     out = [torch.empty_like(t) for _ in range(world())]
-    dist.all_gather(out, t)
+    dist.all_gather(out, t, group=_group())
     return torch.cat(out).cpu().numpy()
 
 
@@ -122,7 +149,7 @@ def max_over_ranks(values: Sequence[int]) -> list:
     if not active():
         return list(values)
     t = torch.tensor(list(values), dtype=torch.int64, device=_device())
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=_group())
     return t.tolist()
 
 
@@ -143,8 +170,10 @@ def pad_batch(batch):
 
 def rank_seed(seed: int) -> int:
     """The seed of this rank's own draws in a step whose draws one process
-    seeds with `seed`: `seed` itself on rank 0 (one process draws as
-    without a group), another stream on each other rank."""
+    seeds with `seed`: `seed` itself on data rank 0 (one process draws as
+    without a group), another stream on each other data rank. It follows
+    the data rank, so every rank of one model group draws alike (the
+    shards of one activation see one dropout mask, one NSF source)."""
     r = rank()
     return seed if r == 0 else int(np.random.SeedSequence((seed, r)).generate_state(1)[0] >> 1)
 
@@ -153,13 +182,13 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         y = x.detach().clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=_group())
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
+        dist.all_reduce(g, group=_group())
         return g
 
 
@@ -169,13 +198,13 @@ class _GatherRows(torch.autograd.Function):
         x = x.contiguous()
         ctx.n = x.shape[0]
         out = [torch.empty_like(x) for _ in range(world())]
-        dist.all_gather(out, x)
+        dist.all_gather(out, x, group=_group())
         return torch.cat(out)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
+        dist.all_reduce(g, group=_group())
         return g[rank() * ctx.n: (rank() + 1) * ctx.n]
 
 
@@ -197,7 +226,7 @@ def mean(x: torch.Tensor) -> torch.Tensor:
     if not active():
         return x
     y = x.detach().clone()
-    dist.all_reduce(y)
+    dist.all_reduce(y, group=_group())
     return y / world()
 
 
@@ -207,7 +236,7 @@ def mean_metrics(metrics: Optional[Dict[str, float]]) -> Optional[Dict[str, floa
         return metrics
     keys = sorted(metrics)
     t = torch.tensor([float(metrics[k]) for k in keys], dtype=torch.float64, device=_device())
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=_group())
     return dict(zip(keys, (t / world()).tolist()))
 
 
@@ -225,20 +254,22 @@ def all_reduce_grads(modules: Iterable[nn.Module]) -> None:
         by_dtype.setdefault(p.grad.dtype, []).append(p)
     for group in by_dtype.values():
         flat = torch.cat([p.grad.reshape(-1) for p in group])
-        dist.all_reduce(flat)
+        dist.all_reduce(flat, group=_group())
         flat /= world()
         for p, g in zip(group, flat.split([p.numel() for p in group])):
             p.grad.copy_(g.view_as(p.grad))
 
 
 def finish() -> None:
-    """Leave the process group, where one was joined."""
+    """Leave the process group, where one was joined, and forget the mesh."""
+    mesh.reset()
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
 
 def barrier() -> None:
-    if active():
+    """Every rank of the world waits for the others."""
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
         dist.barrier(device_ids=[torch.cuda.current_device()] if backend() == "nccl" else None)
 
 

@@ -40,7 +40,12 @@ stays at random init, as the JAX `run.py` falls back. Launched by
 (`parallel/ddp.py`): `batch_size` is the global batch, each rank takes its
 share of it from its own slice of the training list, and rank 0 alone
 writes the log file, metrics, checkpoints, eval artifacts and the config
-copy. After each epoch's
+copy. STYLETTS2_TPU_MODEL_PARALLEL=k (the JAX package's variable, default 1)
+lays the launched ranks out as a (world // k, k) mesh (`parallel/mesh.py`):
+each model group of k ranks holds one copy of the model with PL-BERT's,
+the denoiser's and WavLM's wide layers sharded over it, and takes one
+data rank's share of the batch; a world that k does not divide raises.
+Checkpoints hold the full tensors either way. After each epoch's
 validation the trainer's `eval_artifacts` of the first validation batch
 are written (`MetricsWriter.audio`, `.attention`): reconstructions and their
 ground truth, the first sample's attention in stage 1, and from
@@ -66,13 +71,12 @@ from styletts2_tpu_torch.convert import hf_model_dir, state_dict_from_reference,
 from styletts2_tpu_torch.data.meldataset import build_dataloader
 from styletts2_tpu_torch.models.build import build_training_models
 from styletts2_tpu_torch.observability import MetricsWriter, StepTimer, get_logger, nan_check, trace
-from styletts2_tpu_torch.parallel import ddp
+from styletts2_tpu_torch.parallel import ddp, mesh
 from styletts2_tpu_torch.train.finetune import FinetuneTrainer
 from styletts2_tpu_torch.train.stage1 import Stage1Trainer
 from styletts2_tpu_torch.train.stage2 import Stage2Trainer
 from styletts2_tpu_torch.train.state import (AsyncSaver, TrainState, build_optimizers,
-                                             find_latest_checkpoint, load_checkpoint,
-                                             save_checkpoint)
+                                             find_latest_checkpoint, load_checkpoint, snapshot)
 from styletts2_tpu_torch.utils import set_f32_compute
 
 CKPT_PREFIX = {"first": "epoch_1st_", "second": "epoch_2nd_", "finetune": "epoch_ft_"}
@@ -154,6 +158,11 @@ def setup(cfg: Config, device, logger, stage: str = "first"):
     if stage != "first":
         _load_plbert(models, cfg, logger)
     models.to(device)
+    sharded = mesh.shard_(models)  # before the optimizers: the moments follow the shards
+    if sharded:
+        m = mesh.current()
+        logger.info(f"tensor parallel: model index {m.model_rank} of {m.model}, data index "
+                    f"{m.data_rank} of {m.data}; {len(sharded)} layers sharded")
     state = TrainState(models, build_optimizers(cfg, models, stage2=stage != "first"))
     if stage != "first":
         state.sigma_data = cfg.model_params.diffusion.dist.sigma_data
@@ -181,13 +190,16 @@ def run_stage(stage: str, config: Union[Config, str], max_steps: Optional[int] =
         raise RuntimeError(f"run_stage: device {device}: no CUDA device is available")
     if ddp.launched():
         device = ddp.init(device.type)
-    lead = ddp.rank() == 0
+    mesh.make_mesh(ddp.global_world(), mesh.model_parallel_from_env())
+    lead = ddp.lead()
     cfg = config_from_path(config) if isinstance(config, str) else config
     log_dir = cfg.log_dir
-    logger = get_logger(log_dir, rank=ddp.rank())
+    logger = get_logger(log_dir, rank=ddp.global_rank())
     if ddp.launched():
-        logger.info(f"data-parallel: rank {ddp.rank()} of {ddp.world()} on {device}, backend "
-                    f"{ddp.backend()}, global batch {cfg.batch_size}")
+        k = mesh.current().model
+        logger.info(f"data-parallel: rank {ddp.global_rank()} of {ddp.global_world()} on {device}, "
+                    f"backend {ddp.backend()}, global batch {cfg.batch_size}"
+                    + (f", model parallel {k}" if k > 1 else ""))
     config_copy = os.path.join(log_dir, os.path.basename(config) if isinstance(config, str)
                                else "config.yml")
     if lead and isinstance(config, str):
@@ -240,22 +252,32 @@ def run_stage(stage: str, config: Union[Config, str], max_steps: Optional[int] =
                             + " ".join(f"{k} {v:.4f}" for k, v in agg.items()))
             write_eval_artifacts(stage, cfg, trainer, val_loader, writer, epoch, rng, logger)
             state.epoch = epoch + 1
-            if state.epoch % cfg.save_freq == 0 and lead:
-                saver.save(os.path.join(log_dir, f"{prefix}{state.epoch:05d}.pth"), state)
+            if state.epoch % cfg.save_freq == 0:
+                _save(saver, os.path.join(log_dir, f"{prefix}{state.epoch:05d}.pth"), state, lead)
             if max_steps and iters >= max_steps:
                 break
-        if stage == "first" and lead:
-            save_checkpoint(os.path.join(log_dir, cfg.first_stage_path), state)
-        elif lead:
-            line = write_sigma_data(config_copy, state.sigma_data)
-            logger.info(f"sigma_data {state.sigma_data!r} written into {config_copy}: {line}"
-                        if line else f"{config_copy} has no sigma_data line: left as it is")
-            save_checkpoint(os.path.join(log_dir, f"{stage}_final.pth"), state)
+        if stage == "first":
+            _save(saver, os.path.join(log_dir, cfg.first_stage_path), state, lead)
+        else:
+            if lead:
+                line = write_sigma_data(config_copy, state.sigma_data)
+                logger.info(f"sigma_data {state.sigma_data!r} written into {config_copy}: {line}"
+                            if line else f"{config_copy} has no sigma_data line: left as it is")
+            _save(saver, os.path.join(log_dir, f"{stage}_final.pth"), state, lead)
     finally:
         saver.close()
         writer.close()
     ddp.barrier()
     return state
+
+
+def _save(saver: AsyncSaver, path: str, state: TrainState, lead: bool) -> None:
+    """A checkpoint of `state` written by rank 0; under tensor parallelism
+    every rank takes part in the snapshot's gather of the shards."""
+    if lead or mesh.current().model > 1:
+        payload = snapshot(state)
+        if lead:
+            saver.submit(path, payload)
 
 
 def write_eval_artifacts(stage: str, cfg: Config, trainer, val_loader, writer: MetricsWriter,

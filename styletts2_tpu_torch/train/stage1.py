@@ -117,8 +117,10 @@ class Stage1Trainer:
                       clip_len: int, use_mono: bool,
                       generator: Optional[torch.Generator] = None, mp: bool = False):
         """The shared forward to the reconstruction: (y_rec (B, clip * 600),
-        the target wave clip, aux). Modules run in their current modes; the
-        style encoder and the decoder in bf16 when `mp` (a training step's)."""
+        the target wave clip, aux); aux["decoder_io"] holds the decoder's
+        inputs (en, F0, norm, s), as the JAX trainer's `return_io`. Modules
+        run in their current modes; the style encoder and the decoder in bf16
+        when `mp` (a training step's)."""
         m = self.models
         mels = preprocess_mel(waves)
         mels = mels[..., : (mels.shape[-1] // 2) * 2]
@@ -136,7 +138,8 @@ class Stage1Trainer:
                     if self.cfg.model_params.multispeaker else gt)
         s = run(m, "style_encoder", mp, style_in, update_stats=m["style_encoder"].training)
         y_rec = run(m, "decoder", mp, en, f0_real, real_norm, s, generator)
-        return y_rec, wav_clip, {"s2s_pred": s2s_pred, "s2s_attn": s2s_attn, "mono": mono}
+        return y_rec, wav_clip, {"s2s_pred": s2s_pred, "s2s_attn": s2s_attn, "mono": mono,
+                                 "decoder_io": (en, f0_real, real_norm, s)}
 
     def generator_losses(self, y_rec, wav_clip, aux, tokens, input_lengths, tma: bool):
         """(the generator loss without the adversarial term, metrics)."""

@@ -15,8 +15,10 @@ bias, b_ih + b_hh, whose gradient bias_ih alone takes.
 Checkpoints use the reference layout `{"net": {module: state_dict},
 "optimizer": {module: state_dict}, "iters", "epoch"}` plus stage 2's
 estimated `sigma_data`, written atomically (a temporary file, then a
-rename). The frozen WavLM is never written.
-`AsyncSaver` snapshots the state to host memory at once and writes it on a
+rename). The frozen WavLM is never written. Under tensor parallelism the
+file still holds the full tensors: `snapshot` gathers the shards and
+`load_checkpoint` cuts them again (`parallel/mesh.py`).
+`AsyncSaver` writes a `snapshot` (the state copied to host memory) on a
 background thread; `find_latest_checkpoint` finds the newest epoch file
 for auto-resume.
 """
@@ -34,6 +36,8 @@ from torch import nn
 
 from styletts2_tpu_torch.config import Config
 from styletts2_tpu_torch.models.build import FROZEN_MODULES
+from styletts2_tpu_torch.parallel.mesh import (full_optimizer_state, full_state_dict,
+                                               local_optimizer_state, local_state_dict)
 
 
 def build_optimizers(cfg: Config, models: nn.ModuleDict,
@@ -94,10 +98,13 @@ def _to_host(obj):
 
 
 def snapshot(state: TrainState) -> dict:
-    """The checkpoint payload, copied to host memory."""
+    """The checkpoint payload, copied to host memory: the full tensors of
+    sharded layers and their moments (a collective of the model group under
+    tensor parallelism, so every rank of it takes the snapshot)."""
     payload = {
-        "net": {k: m.state_dict() for k, m in state.models.items() if k not in FROZEN_MODULES},
-        "optimizer": {k: o.state_dict() for k, o in state.opts.items()},
+        "net": {k: full_state_dict(m) for k, m in state.models.items()
+                if k not in FROZEN_MODULES},
+        "optimizer": {k: full_optimizer_state(state.models[k], o) for k, o in state.opts.items()},
         "iters": state.step,
         "epoch": state.epoch,
     }
@@ -120,16 +127,18 @@ def save_checkpoint(path: str, state: TrainState) -> None:
 
 
 class AsyncSaver:
-    """Checkpoint writes on one background thread: `save` snapshots now and
-    returns; `wait_for_saves` blocks until every write landed and re-raises
-    the first failure. `close` waits, then stops the thread."""
+    """Checkpoint writes on one background thread: `submit` queues a
+    snapshot's write and returns; `wait_for_saves` blocks until every write
+    landed and re-raises the first failure. `close` waits, then stops the
+    thread."""
 
     def __init__(self):
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="ckpt_save")
         self._pending: List[Tuple[str, Future]] = []
 
-    def save(self, path: str, state: TrainState) -> Future:
-        fut = self._pool.submit(write_payload, path, snapshot(state))
+    def submit(self, path: str, payload: dict) -> Future:
+        """Write a payload `snapshot` took."""
+        fut = self._pool.submit(write_payload, path, payload)
         self._pending.append((path, fut))
         return fut
 
@@ -161,16 +170,18 @@ def load_checkpoint(path: str, state: TrainState, load_only_params: bool = False
     checkpoint; a module the file lacks (the frozen WavLM) or that
     `ignore_modules` names keeps its live weights. `load_only_params`
     restores the modules' weights (spectral-norm vectors included) and
-    nothing else, as the reference's `load_checkpoint`."""
+    nothing else, as the reference's `load_checkpoint`. A sharded layer
+    (`parallel/mesh.py`) takes this rank's slice of the file's full
+    tensors and moments."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     for k, sd in payload["net"].items():
         if k in state.models and k not in ignore_modules:
-            state.models[k].load_state_dict(sd)
+            state.models[k].load_state_dict(local_state_dict(state.models[k], sd))
     if load_only_params:
         return state
     for k, sd in payload.get("optimizer", {}).items():
         if k in state.opts and k not in ignore_modules:
-            state.opts[k].load_state_dict(sd)
+            state.opts[k].load_state_dict(local_optimizer_state(state.models[k], sd))
     state.step = int(payload.get("iters", 0))
     state.epoch = int(payload.get("epoch", 0))
     if "sigma_data" in payload:

@@ -197,3 +197,73 @@ def test_kernels_are_deterministic(cuda, shape):
     first, second = (adain_snake_bwd(x, gamma, beta, alpha, dy) for _ in range(2))
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+def test_fidelity_step_launches_the_kernels(cuda):
+    """One pre-TMA step of the fidelity tool's tiny model (three resblock
+    kernels, 48 AdaIN+snake rows per decoder run) on the card: 48 K1 and
+    48 K2 launches, finite metrics."""
+    import numpy as np
+
+    from styletts2_tpu_torch import fidelity
+
+    cfg = fidelity.fidelity_config("tiny")
+    cfg.model_params.decoder.resblock_kernel_sizes = [3, 7, 11]
+    cfg.model_params.decoder.resblock_dilation_sizes = [[1, 3, 5]] * 3
+    trainer = fidelity.build_trainer(cfg, cuda)
+    rng = np.random.default_rng(fidelity.TRAIN_SEED)
+    k1, k2 = adain_snake.launches, adain_snake.bwd_launches
+    m = trainer.train_step(fidelity.speechlike_batch(rng, 2), 0, 0, rng)
+    assert (adain_snake.launches - k1, adain_snake.bwd_launches - k2) == (48, 48)
+    assert all(np.isfinite(v) for v in m.values()), m
+
+
+def _tp_layers_worker(rank, init_file, out):
+    """One of two gloo ranks on cuda:0: a column/row pair and to_kv-style
+    split (parts 2) against the full layers on the same inputs."""
+    import torch.distributed as dist
+    from torch import nn
+
+    from styletts2_tpu_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=2)
+    try:
+        m = mesh.make_mesh(2, 2)
+        g = torch.manual_seed(0)  # both ranks build the same layers and input
+        col, row = nn.Linear(64, 256), nn.Linear(256, 64)
+        kv = nn.Linear(64, 256, bias=False)
+        for lin in (col, row, kv):
+            lin.to("cuda")
+        x = torch.randn(3, 5, 64, generator=g).cuda().requires_grad_()
+        want = row(torch.nn.functional.gelu(col(x))) + kv(x).chunk(2, dim=-1)[0].sum()
+        want.square().sum().backward()
+        scol, srow, skv = (mesh.ShardedLinear(lin, d, p, m.model, m.model_rank)
+                           for lin, d, p in ((col, 0, 1), (row, 1, 1), (kv, 0, 2)))
+        xs = x.detach().clone().requires_grad_()
+        k_half = skv(xs).chunk(2, dim=-1)[0]  # this rank's heads of the key half
+        got = srow(torch.nn.functional.gelu(scol(xs))) + mesh.reduce_from_model(k_half.sum())
+        got.square().sum().backward()
+        errs = [float((got - want).abs().max() / want.abs().max().detach()),
+                float((xs.grad - x.grad).abs().max() / x.grad.abs().max())]
+        for lin, s in ((col, scol), (row, srow), (kv, skv)):
+            full = s.gather(s.weight.grad, "weight")
+            errs.append(float((full - lin.weight.grad).abs().max() / lin.weight.grad.abs().max()))
+        torch.save(errs, f"{out}{rank}")
+    finally:
+        mesh.reset()
+        dist.destroy_process_group()
+
+
+def test_tensor_parallel_layers_match_the_full_ones(cuda, tmp_path):
+    """Two gloo ranks on cuda:0 at model parallel 2: the sharded pair's
+    output, the input's gradient and every weight's gathered gradient
+    within 1e-5 of the full layers' (f32, TF32 off; only the sums' order
+    differs)."""
+    import torch.multiprocessing as mp
+
+    mp.spawn(_tp_layers_worker, args=(str(tmp_path / "rdv"), str(tmp_path / "errs")), nprocs=2)
+    for rank in range(2):
+        errs = torch.load(tmp_path / f"errs{rank}")
+        assert max(errs) <= 1e-5, errs

@@ -223,7 +223,13 @@ def runs(tmp_path_factory):
 @pytest.mark.parametrize("stage", STAGES)
 def test_two_ranks_step_as_one_process_on_the_global_batch(stage, runs):
     ranks, one = runs
-    ranks, want = [r[stage] for r in ranks], one[stage]
+    check_as_one_process(stage, [r[stage] for r in ranks], one[stage])
+
+
+def check_as_one_process(stage, ranks, want):
+    """The ranks' step ({"metrics", "grads", "state"} each, full tensors)
+    against one process's, `want` (the tolerances above); returns the
+    gradients' errors {(optimizer step, module): relative L2}."""
     got = ranks[0]
     for other in ranks[1:]:  # every rank holds the same weights, vectors and metrics
         assert other["metrics"] == got["metrics"]
@@ -272,6 +278,7 @@ def test_two_ranks_step_as_one_process_on_the_global_batch(stage, runs):
           f"{max([e for (i, _), e in grad_err.items() if i >= late], default=0):.1e}; "
           f"{flips} of {total} weights past {PARAM_ABS:g}; late modules' updates "
           f"{max(late_err.values(), default=0):.1e}")
+    return grad_err
 
 
 def _free_port():

@@ -22,6 +22,7 @@ from styletts2_tpu_torch.models import build as pbuild
 from styletts2_tpu_torch.models.discriminators import (MultiPeriodDiscriminator,
                                                        MultiResSpecDiscriminator)
 from styletts2_tpu_torch.models.wavlm import WavLM
+from styletts2_tpu_torch.parallel.tiny import tiny_config
 from styletts2_tpu_torch.train import stage1 as pstage1
 from styletts2_tpu_torch.train import stage2 as pstage2
 from styletts2_tpu_torch.train.state import TrainState, build_optimizers
@@ -34,20 +35,12 @@ WAVLM = dict(hidden=48, heads=2, intermediate=48, num_layers=2)
 
 
 def tiny_cfg(**fields) -> Config:
-    """`styletts2_tpu/parallel/tiny.py:tiny_config()` with a WavLM of WAVLM
+    """The port's `parallel/tiny.py:tiny_config()` with a WavLM of WAVLM
     and SLM clips of 20 mel-half frames (12000 samples), which keep the
     pass's structure at half its CPU time (a step's own clips stay 40, the
     style encoder's least)."""
-    cfg = Config()
-    pb, mp = cfg.plbert_params, cfg.model_params
-    pb.num_hidden_layers, pb.hidden_size, pb.intermediate_size = 1, 128, 1536
-    pb.num_attention_heads, pb.embedding_size = 4, 64
-    mp.hidden_dim, mp.max_conv_dim, mp.style_dim, mp.dim_in = 128, 128, 64, 32
-    mp.diffusion.transformer.num_layers = 1
-    mp.decoder.upsample_initial_channel = 128
-    mp.decoder.resblock_kernel_sizes, mp.decoder.resblock_dilation_sizes = [3], [[1, 3]]
-    mp.slm.hidden, mp.slm.nlayers = WAVLM["hidden"], 3
-    cfg.max_len = 80
+    cfg = tiny_config()
+    cfg.model_params.slm.hidden = WAVLM["hidden"]
     cfg.slmadv_params.min_len, cfg.slmadv_params.max_len = 40, 80
     return dataclasses.replace(cfg, **fields)
 
