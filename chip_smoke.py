@@ -144,6 +144,15 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      equal to the unlaunched step from the same weights (losses within
      1e-5, gradients within 3e-2), K1/K2 per rank the unlaunched run's;
      each rank's parameters, peak memory and step time
+ 24. benches (`bench_phase`): `bench.headline_once` in process on Config()
+     (48 K1 per decode, 0 plain-version calls, RTF > 0); `python -m
+     styletts2_tpu_torch.bench` with STYLETTS2_BENCH_PROCS=2 (exit 0, its
+     JSON line); `bench_train` at full width, 2 timed steps, stage 1 (TMA)
+     in f32 and stage 2 (joint) in bf16: each step's K1/K2 as its stage's,
+     finite metrics, a non-null MFU against the H100 peak
+ 25. notebooks (`notebook_phase`): the three `examples/torch/` notebooks at
+     full width on cuda, 48 K1 per decoder run, K2 from the finetune step,
+     0 plain-version calls
 Phase 3 and 9 also check and time K1 and K2 at LibriTTS stage 2's HiFi-GAN
 training shapes (f32). Every number line carries the card's name and power limit. Then a JSON line
 of the kernels (f32 and bf16 times) and, last, {"ok": true, "device": {...}}.
@@ -2421,6 +2430,182 @@ def tp_child(argv):
         dist.destroy_process_group()
 
 
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}  # bench.py's line
+
+
+def _zero_counts(op):
+    op.adain_snake.launches = op.adain_snake.bwd_launches = 0
+
+
+def _bench_train_run(op, smi, argv, tag):
+    """`bench_train.run` on the card with every step's K1 / K2 launches and
+    metrics recorded; raise unless each step launched as its stage's step
+    does (stage 1 from TMA: 48 / 48; stage 2 joint: `_stage2_launches`)
+    with x in the run's dtype, 0 plain-version calls, finite metrics and a
+    non-null MFU. Returns (the result, K1, K2)."""
+    from styletts2_tpu_torch import bench_train
+    from styletts2_tpu_torch.train.stage1 import Stage1Trainer
+    from styletts2_tpu_torch.train.stage2 import Stage2Trainer
+
+    args = bench_train.parse_args(argv)
+    cls = Stage2Trainer if args.stage == "second" else Stage1Trainer
+    dtype = "bfloat16" if args.mp == "bf16" else "float32"
+    steps, train_step = [], cls.train_step
+
+    def counted(self, *a, **k):
+        k1, k2, by = op.adain_snake.launches, op.adain_snake.bwd_launches, dict(tally.n)
+        m = train_step(self, *a, **k)
+        steps.append({"k1": op.adain_snake.launches - k1, "k2": op.adain_snake.bwd_launches - k2,
+                      "dtypes": {dt for _, dt in tally.since(by)}, "metrics": m})
+        return m
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cls.train_step = counted
+    try:
+        with _Tally(op) as tally:
+            _zero_counts(op)
+            r = bench_train.run(args)
+            k1, k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
+    finally:
+        cls.train_step = train_step
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    wants = [(CALLS_PER_STEP * (1 + args.remat), CALLS_PER_STEP) if cls is Stage1Trainer else
+             _stage2_launches(True, True, st["metrics"]["slm_sampled"], args.remat)
+             for st in steps]
+    got = [(st["k1"], st["k2"]) for st in steps]
+    line = {k: v for k, v in r.items() if k != "metrics"}
+    print(f"[{tag}] bench_train {' '.join(argv)}: {json.dumps(line)}; {len(steps)} steps "
+          f"(warm-up, {args.steps} timed, 1 counted), K1/K2 per step {got}, peak "
+          f"{peak / 2 ** 30:.2f} GiB, {tally.plain} plain-version calls; "
+          f"{time.perf_counter() - t0:.1f} s [{smi}]", flush=True)
+    if got != wants or any(st["dtypes"] != {dtype} for st in steps) or tally.plain:
+        raise RuntimeError(f"[{tag}] launches per step {got} with x in "
+                           f"{[st['dtypes'] for st in steps]}, want {wants} in {dtype}; "
+                           f"{tally.plain} plain-version calls")
+    if k1 != sum(g[0] for g in got) or k2 != sum(g[1] for g in got):
+        raise RuntimeError(f"[{tag}] {k1} K1 / {k2} K2 launches outside the steps' {got}")
+    if not all(np.isfinite(v) for st in steps for v in st["metrics"].values()) \
+            or len(steps) != args.steps + 2 or r["mfu"] is None or not r["mfu"] > 0 \
+            or not r["flops_per_step"]:
+        raise RuntimeError(f"[{tag}] metrics {[st['metrics'] for st in steps]}, result {line}")
+    return r, k1, k2
+
+
+def bench_phase(op, smi):
+    """Phase 24: the port's benches on the card.
+    - `bench.headline_once` in process on Config() (seeded weights): the
+      calibration, a warm-up and 20 timed calls, each decode 48 f32 K1
+      launches, 0 plain-version calls, RTF > 0;
+    - `python -m styletts2_tpu_torch.bench` with STYLETTS2_BENCH_PROCS=2 as
+      a subprocess (its worker a third process): exit 0, one JSON last line
+      with the bench's keys, the batched and bf16 extras, a positive value;
+    - `bench_train.run` at full width, 2 timed steps: stage 1 (TMA) in f32
+      and stage 2 (joint) with `--mp bf16`, each step's K1 / K2 as its
+      stage's (`_bench_train_run`), finite metrics, a non-null MFU.
+    Returns (K1, K2) of the in-process runs."""
+    from styletts2_tpu_torch import bench
+    from styletts2_tpu_torch.config import Config
+    from styletts2_tpu_torch.inference import Synthesizer
+
+    start = time.perf_counter()
+    syn = Synthesizer(Config(), seed=0, device="cuda")
+    with _Counts(op, syn.models["decoder"]) as c:
+        stats, speed = bench.headline_once(syn)
+    c.check(CALLS_PER_DECODE, "bench headline")
+    del syn
+    torch.cuda.empty_cache()
+    print(f"[24 bench] headline_once in process: {json.dumps(stats)}, speed {speed:.4f}; "
+          f"{c.launches} K1 launches in {c.decodes} decodes, 0 plain-version calls [{smi}]",
+          flush=True)
+    if not stats["rtf"] > 0 or c.decodes != stats["n_runs"] + 2:
+        raise RuntimeError(f"[24 bench] headline: {stats}, {c.decodes} decodes")
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "styletts2_tpu_torch.bench"], cwd=REPO,
+                         env=dict(os.environ, STYLETTS2_BENCH_PROCS="2", PYTHONPATH=str(REPO)),
+                         capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise RuntimeError(f"[24 bench] python -m styletts2_tpu_torch.bench exited "
+                           f"{out.returncode}:\n{out.stderr[-3000:]}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    extra = line.get("extra", {})
+    print(f"[24 bench] python -m styletts2_tpu_torch.bench (2 processes) in "
+          f"{time.perf_counter() - t0:.1f} s: {json.dumps(line)} [{smi}]", flush=True)
+    if set(line) != BENCH_KEYS or not line["value"] > 0 or extra.get("n_procs") != 2 or not (
+            extra.get("batched_B8_rtf", 0) > 0 and extra.get("bf16_decoder_rtf", 0) > 0):
+        raise RuntimeError(f"[24 bench] bench line {line}")
+
+    _, k1a, k2a = _bench_train_run(op, smi, ["--full-size", "--stage", "first", "--steps", "2"],
+                                   "24 bench")
+    _, k1b, k2b = _bench_train_run(op, smi, ["--full-size", "--stage", "second", "--mp", "bf16",
+                                             "--steps", "2"], "24 bench")
+    print(f"[24 bench] phase 24 in {time.perf_counter() - start:.1f} s wall [{smi}]", flush=True)
+    return c.launches + k1a + k1b, k2a + k2b
+
+
+NOTEBOOKS = ("demo_ljspeech.ipynb", "demo_libritts.ipynb", "finetune_demo.ipynb")
+
+
+def notebook_phase(op, smi):
+    """Phase 25: the port's three example notebooks (`examples/torch/`) at
+    full width on the card (STYLETTS2_DEMO_DEVICE=cuda, no LITE), every code
+    cell run in order in a fresh namespace in a temporary directory: each
+    decoder run launches 48 K1 (the notebooks' decoders are iSTFTNet), the
+    finetune notebook's training step K2 too, 0 plain-version calls.
+    Returns (K1, K2)."""
+    from styletts2_tpu_torch.models import decoder_hifigan, decoder_istft
+
+    start, launches = time.perf_counter(), [0, 0]
+    decoders = (decoder_istft.Decoder, decoder_hifigan.Decoder)
+    env = {"STYLETTS2_DEMO_DEVICE": "cuda", "STYLETTS2_DEMO_LITE": "0"}
+    saved_env, cwd = {k: os.environ.get(k) for k in env}, os.getcwd()
+    for name in NOTEBOOKS:
+        nb = json.loads((REPO / "examples" / "torch" / name).read_text())
+        runs = [0]
+
+        def count(module, args):
+            runs[0] += isinstance(module, decoders)
+
+        t0 = time.perf_counter()
+        hook = torch.nn.modules.module.register_module_forward_pre_hook(count)
+        os.environ.update(env)
+        try:
+            with tempfile.TemporaryDirectory() as tmp, _Tally(op) as tally:
+                os.chdir(tmp)
+                _zero_counts(op)
+                ns = {}
+                for i, cell in enumerate(nb["cells"]):
+                    if cell["cell_type"] == "code":
+                        exec(compile("".join(cell["source"]), f"{name}:cell{i}", "exec"), ns)
+                k1, k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
+                os.chdir(cwd)
+        finally:
+            os.chdir(cwd)
+            hook.remove()
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        del ns
+        torch.cuda.empty_cache()
+        print(f"[25 notebooks] {name} at full width on cuda: {time.perf_counter() - t0:.1f} s, "
+              f"{runs[0]} decoder runs, K1 {k1} K2 {k2} "
+              f"({dict((f'{key} {dt}', n) for (key, dt), n in tally.n.items())}) [{smi}]",
+              flush=True)
+        if k1 != CALLS_PER_DECODE * runs[0] or not runs[0] or tally.plain or \
+                (k2 > 0) != (name == "finetune_demo.ipynb"):
+            raise RuntimeError(f"[25 notebooks] {name}: {k1} K1 / {k2} K2 launches for "
+                               f"{runs[0]} decoder runs, {tally.plain} plain-version calls")
+        launches[0] += k1
+        launches[1] += k2
+    print(f"[25 notebooks] phase 25 in {time.perf_counter() - start:.1f} s wall [{smi}]",
+          flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
@@ -2565,6 +2750,8 @@ def main():
     ddp_k1, ddp_k2 = ddp_wavlm_phase(op, build_dir, smi, dev)  # 20, 21
     fid_k1, fid_k2 = fidelity_phase(op, smi)  # 22
     tp_k1, tp_k2 = tp_phase(op, build_dir, smi)  # 23
+    bench_k1, bench_k2 = bench_phase(op, smi)  # 24
+    nb_k1, nb_k2 = notebook_phase(op, smi)  # 25
 
     def row(t, shape, dtype):
         return {"shape": list(shape), "dtype": dtype, "ms": t["cold"][0], "plain_ms": t["cold"][1],
@@ -2578,7 +2765,7 @@ def main():
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:38",
         "launches": lj.launches + lt.launches + sv.launches + train_k1 + stage2_k1 + bf16_k1 + mp_k1
-        + ref_k1 + remat_k1 + lt2_k1 + ddp_k1 + fid_k1 + tp_k1,
+        + ref_k1 + remat_k1 + lt2_k1 + ddp_k1 + fid_k1 + tp_k1 + bench_k1 + nb_k1,
         "max_abs_err": max_err["float32"],
         "ms": fwd["cold"][0], "plain_ms": fwd["cold"][1], "bound_ms": fwd["bound"],
         "bound_by": "bytes", "library_ms": None, "shape": list(fwd_shape),
@@ -2588,7 +2775,8 @@ def main():
         "name": "adain_snake_bwd", "route": "cuda",
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:117",
-        "launches": train_k2 + stage2_k2 + mp_k2 + remat_k2 + lt2_k2 + ddp_k2 + fid_k2 + tp_k2,
+        "launches": train_k2 + stage2_k2 + mp_k2 + remat_k2 + lt2_k2 + ddp_k2 + fid_k2 + tp_k2
+        + bench_k2 + nb_k2,
         "max_abs_err": bwd_err["float32"],
         "ms": bwd["cold"][0], "plain_ms": bwd["cold"][1], "bound_ms": bwd["bound"],
         "bound_by": "bytes", "library_ms": None, "shape": list(bwd_shape),

@@ -7,9 +7,10 @@
 
 `--ckpt` is a StyleTTS 2 checkpoint, the reference's own `.pth` or one of
 the port's trainers (`serve.load_synthesizer`); without it the weights are
-random (seed 0). The text is pre-phonemized IPA. `--ref_wav` (multispeaker)
-is resampled to 24 kHz by linear interpolation. It runs on the card unless
-`--device cpu` asks for the CPU, with convolutions and matmuls in f32.
+random, drawn from `--seed`, which also seeds the sampler's draws. The text
+is pre-phonemized IPA. `--ref_wav` (multispeaker) is resampled to 24 kHz by
+linear interpolation. It runs on the card unless `--device cpu` asks for
+the CPU, with convolutions and matmuls in f32.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     args = parse_args(argv)
     set_f32_compute()
-    syn = load_synthesizer(args.config, args.ckpt, args.device)
+    syn = load_synthesizer(args.config, args.ckpt, args.device, seed=args.seed)
     ref_s = None
     if args.ref_wav:
         wave, sr = read_wav(args.ref_wav)

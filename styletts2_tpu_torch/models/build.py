@@ -114,7 +114,8 @@ def build_models(cfg: Config, generator: Optional[torch.Generator] = None) -> nn
 
 
 def build_training_models(cfg: Config, generator: Optional[torch.Generator] = None,
-                          stage: str = "first") -> nn.ModuleDict:
+                          stage: str = "first",
+                          aux: Optional[Dict[str, nn.Module]] = None) -> nn.ModuleDict:
     """The trainer's modules, keyed like the reference checkpoint:
     TRAIN_MODULES (text_encoder, style_encoder and decoder as synthesis
     builds them; the ASR aligner text_aligner, the JDC pitch_extractor and
@@ -124,21 +125,29 @@ def build_training_models(cfg: Config, generator: Optional[torch.Generator] = No
     diffusion and the WavLM discriminator wd; both style encoders whether
     or not the config is multispeaker). Each takes the JAX package's init
     distributions (but for `_init_weights`' one departure), drawn from `generator` in that order, so the stage-1
-    modules get the same weights at every stage."""
+    modules get the same weights at every stage. `aux` maps any of
+    text_aligner, pitch_extractor, mpd, msd and wavlm to a module built
+    by the caller (a narrower one, as `parallel/tiny.py` builds), taken in
+    place of the default and initialised alike."""
     if stage not in ("first", "second", "finetune"):
         raise ValueError(f"unknown stage {stage!r}")
+    aux = aux or {}
     mp = cfg.model_params
     models = nn.ModuleDict({"text_encoder": _text_encoder(cfg),
                             "style_encoder": _style_encoder(cfg), "decoder": _decoder(cfg)})
     _init_weights(models, generator)
     extra = {
-        "text_aligner": (ASRCNN(input_dim=mp.n_mels, n_token=mp.n_token), init_asr_),
-        "pitch_extractor": (JDCNet(num_class=1), init_jdc_),
-        "mpd": (MultiPeriodDiscriminator(), init_discriminator_),
-        "msd": (MultiResSpecDiscriminator(), init_discriminator_),
-        "wavlm": (WavLM(), init_wavlm_),
+        "text_aligner": (lambda: ASRCNN(input_dim=mp.n_mels, n_token=mp.n_token), init_asr_),
+        "pitch_extractor": (lambda: JDCNet(num_class=1), init_jdc_),
+        "mpd": (MultiPeriodDiscriminator, init_discriminator_),
+        "msd": (MultiResSpecDiscriminator, init_discriminator_),
+        "wavlm": (WavLM, init_wavlm_),
     }
-    for key, (mod, init) in extra.items():
+    unknown = sorted(set(aux) - set(extra))
+    if unknown:
+        raise ValueError(f"aux: not an auxiliary module: {unknown}")
+    for key, (make, init) in extra.items():
+        mod = aux[key] if key in aux else make()
         init(mod, generator)
         models[key] = mod
     if stage != "first":

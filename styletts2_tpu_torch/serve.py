@@ -264,7 +264,7 @@ class TTSServer:
 
 
 def load_synthesizer(config: Optional[str], ckpt: Optional[str] = None, device: str = "cuda",
-                     decoder_dtype: Optional[str] = None):
+                     decoder_dtype: Optional[str] = None, seed: int = 0):
     """The Synthesizer of a YAML config (`Config()` without one) on `device`.
     The repository's two configs are built without PyYAML
     (`config.config_from_path`). `ckpt` is a StyleTTS 2 checkpoint, a torch
@@ -276,7 +276,7 @@ def load_synthesizer(config: Optional[str], ckpt: Optional[str] = None, device: 
     (aligner, pitch extractor, discriminators) are skipped, and a module or
     a weight the file lacks is an error. The sampler's sigma_data is the
     file's `sigma_data` (the port's stage-2 estimate), else the config's.
-    Without `ckpt` the weights are random, drawn from seed 0. A CUDA device
+    Without `ckpt` the weights are random, drawn from `seed`. A CUDA device
     that is not there is an error, never a fall-back to the CPU.
     `decoder_dtype`: see `Synthesizer`."""
     import torch
@@ -293,8 +293,8 @@ def load_synthesizer(config: Optional[str], ckpt: Optional[str] = None, device: 
         payload = torch.load(ckpt, map_location="cpu", weights_only=True)
         state_dict = state_dict_from_reference(payload["net"], cfg)
         sigma_data = float(payload.get("sigma_data", sigma_data))
-    return Synthesizer(cfg, state_dict=state_dict, device=device, sigma_data=sigma_data,
-                       decoder_dtype=decoder_dtype)
+    return Synthesizer(cfg, state_dict=state_dict, seed=seed, device=device,
+                       sigma_data=sigma_data, decoder_dtype=decoder_dtype)
 
 
 def parse_args(argv=None):

@@ -165,7 +165,7 @@ def _run(code, cwd):
 
 
 def test_port_imports_no_jax():
-    """Importing the port, its server, its demo, its trainers (with
+    """Importing the port, its benches, its server, its demo, its trainers (with
     `train/mp.py`), `eval.py`, the data-parallel module and the Hugging Face
     WavLM reader, and running a tiny single-speaker and a tiny multispeaker CPU
     synthesis, each with the f32 and the bf16 decoder, loads neither JAX,
@@ -173,6 +173,8 @@ def test_port_imports_no_jax():
     code = """
 import sys
 import numpy as np
+import styletts2_tpu_torch.bench
+import styletts2_tpu_torch.bench_train
 import styletts2_tpu_torch.demo
 import styletts2_tpu_torch.eval
 import styletts2_tpu_torch.serve
