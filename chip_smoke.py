@@ -8,7 +8,8 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      (`utils.set_f32_compute`, as the entry points) and the flags after it
   2. build: compile the CUDA kernel from styletts2_tpu_torch/csrc/
   3. kernel: the fused AdaIN+snake kernel (K1) against its plain PyTorch
-     version at both decoders' shapes of an 8 s utterance, the server's
+     version at both decoders' shapes of an 8 s utterance and of
+     `inference_fused`'s 600-frame budget (phase 26), the server's
      batched HiFi-GAN shape and the training shapes, each in f32 and bf16
      (the bf16 decoder, bf16 training), the JAX tests' shapes, an odd T,
      rows that stream from global memory, and rows split over a forced
@@ -147,14 +148,31 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
  24. benches (`bench_phase`): `bench.headline_once` in process on Config()
      (48 K1 per decode, 0 plain-version calls, RTF > 0); `python -m
      styletts2_tpu_torch.bench` with STYLETTS2_BENCH_PROCS=2 (exit 0, its
-     JSON line); `bench_train` at full width, 2 timed steps, stage 1 (TMA)
+     JSON line, the fused extras); `bench_train` at full width, 2 timed steps, stage 1 (TMA)
      in f32 and stage 2 (joint) in bf16: each step's K1/K2 as its stage's,
      finite metrics, a non-null MFU against the H100 peak
  25. notebooks (`notebook_phase`): the three `examples/torch/` notebooks at
      full width on cuda, 48 K1 per decoder run, K2 from the finetune step,
      0 plain-version calls
+ 26. single dispatch (`fused_phase`): `inference_fused` (frame budget 600)
+     captured as one CUDA graph for Config() and libritts_config(), each
+     with the f32 and the bf16 decoder: each replay equals an eager run of
+     the same program on the card (1e-5 of its peak in f32, one bf16
+     rounding with the bf16 decoder), same-seed replays are bit-equal and
+     another seed's differ, the profiler counts K1 48 / 96 times in one
+     replay, as many as the replay adds to the count, 0 plain-version
+     calls; capture time, the graph's pool, p50 / p95, RTF, host launches
+     and the device's busy share, beside the staged path's in the same
+     process; every shape K1 runs at in the graphs is one of phase 3's.
+     A second graph (10 steps) captured into the first's pool, both replays
+     unchanged after it. One f32 replay per config against the same
+     program on the CPU, same weights, inputs and draws: waveform within
+     1e-3. `Synthesizer(phase_a="fused")` against the staged path:
+     durations equal, waveform within 1e-5
 Phase 3 and 9 also check and time K1 and K2 at LibriTTS stage 2's HiFi-GAN
-training shapes (f32). Every number line carries the card's name and power limit. Then a JSON line
+training shapes (f32); phase 3 also at `inference_fused`'s budget-600
+decoder shapes, both dtypes. After each phase (or pair) a "[n done]" line gives the
+smoke's wall so far. Every number line carries the card's name and power limit. Then a JSON line
 of the kernels (f32 and bf16 times) and, last, {"ok": true, "device": {...}}.
 It needs a CUDA device and the repository beside it; without either it
 exits non-zero before printing a result.
@@ -206,6 +224,12 @@ MAIN_SHAPES = [
     (1, 128, 32000),  # 100 F
     (1, 64, 96000),  # 300 F
     (1, 32, 192000),  # 600 F
+    # inference_fused decodes its whole budget of 600 frames (phase 26):
+    (1, 256, 12000),  # iSTFTNet stage 0 and HiFi-GAN stage 0: 20 x 600
+    (1, 128, 72001),  # iSTFTNet stage 1: 120 x 600 + 1
+    (1, 128, 60000),  # HiFi-GAN stages 1-3: 100, 300, 600 x 600
+    (1, 64, 180000),
+    (1, 32, 360000),
     (8, 32, 192000),  # the last stage of a server batch of 8
     (16, 256, 4000),  # stage-1 training: batch 16, a 200-frame clip
     (16, 128, 24001),
@@ -354,6 +378,15 @@ def _noise_source(self, f0, generator=None):
     return amp * torch.randn(f0.shape[:2] + (self.dim,), device=f0.device), uv
 
 
+def _zero_phase(magphase):
+    """`stft_magphase` with its phase zeroed (atan2 of ~0-magnitude bins
+    flips under any float reassociation)."""
+    def zeroed(*a):
+        mag, phase = magphase(*a)
+        return mag, torch.zeros_like(phase)
+    return zeroed
+
+
 def _host_draws(fn, *args, zero_sines=False, noise_source=False, **kwargs):
     """`fn(*args, **kwargs)` with every random draw taken from one seeded CPU
     generator, so that two devices decode the same inputs, and the NSF
@@ -374,11 +407,7 @@ def _host_draws(fn, *args, zero_sines=False, noise_source=False, **kwargs):
         return lambda size, generator=None, device=None, dtype=None: f(
             size, generator=host, dtype=dtype).to(device)
 
-    def zero_phase(*a):
-        mag, phase = magphase(*a)
-        return mag, torch.zeros_like(phase)
-
-    torch.rand, torch.randn, pdi.stft_magphase = draw(rand), draw(randn), zero_phase
+    torch.rand, torch.randn, pdi.stft_magphase = draw(rand), draw(randn), _zero_phase(magphase)
     hifigan = zero_sines or getattr(getattr(fn, "__self__", None), "hifigan", False)
     pdi.SineGen.forward = _noise_source if noise_source else _zero_sines if hifigan else sines
     try:
@@ -425,20 +454,24 @@ def reference_net(state_dict, seed=0):
 class _Tally:
     """While entered: the kernels' launches by (kernel, x's dtype name), K1
     as `_forward_kernel` is called and K2 as `adain_snake_bwd` is, and the
-    plain versions' calls (`plain`)."""
+    plain versions' calls (`plain`); `shapes[kernel]` the (x's shape, dtype
+    name) pairs each was called at."""
 
     WRAPPED = {"_forward_kernel": "K1", "adain_snake_bwd": "K2", "adain_snake_ref": "plain",
                "adain_snake_bwd_ref": "plain"}
 
     def __init__(self, op):
         self.op, self.n = op, collections.Counter()
+        self.shapes = collections.defaultdict(set)
 
     def __enter__(self):
         self._saved = {name: getattr(self.op, name) for name in self.WRAPPED}
 
         def counted(key, fn):
             def call(x, *a, **k):
-                self.n[key, str(x.dtype).split(".")[-1]] += 1
+                dtype = str(x.dtype).split(".")[-1]
+                self.n[key, dtype] += 1
+                self.shapes[key].add((tuple(x.shape), dtype))
                 return fn(x, *a, **k)
             return call
 
@@ -2277,17 +2310,14 @@ def _rounding_stable():
     cudnn = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
 
-    def zero_phase(*a):
-        mag, phase = magphase(*a)
-        return mag, torch.zeros_like(phase)
-
     def rounded(x, *a, **k):
         if a or k:
             return median(x, *a, **k)
         flat = x.reshape(-1)
         return flat[median(torch.round(flat.detach() / MEDIAN_GRID), dim=0).indices]
 
-    pdi.stft_magphase, torch.median, pdi.SineGen.forward = zero_phase, rounded, _noise_source
+    pdi.stft_magphase, torch.median, pdi.SineGen.forward = (_zero_phase(magphase), rounded,
+                                                            _noise_source)
     try:
         yield
     finally:
@@ -2534,7 +2564,8 @@ def bench_phase(op, smi):
     print(f"[24 bench] python -m styletts2_tpu_torch.bench (2 processes) in "
           f"{time.perf_counter() - t0:.1f} s: {json.dumps(line)} [{smi}]", flush=True)
     if set(line) != BENCH_KEYS or not line["value"] > 0 or extra.get("n_procs") != 2 or not (
-            extra.get("batched_B8_rtf", 0) > 0 and extra.get("bf16_decoder_rtf", 0) > 0):
+            extra.get("batched_B8_rtf", 0) > 0 and extra.get("bf16_decoder_rtf", 0) > 0
+            and extra.get("fused_rtf", 0) > 0 and extra.get("fused_latency_p50_ms", 0) > 0):
         raise RuntimeError(f"[24 bench] bench line {line}")
 
     _, k1a, k2a = _bench_train_run(op, smi, ["--full-size", "--stage", "first", "--steps", "2"],
@@ -2606,9 +2637,308 @@ def notebook_phase(op, smi):
     return launches
 
 
+FUSED_BUDGET = 600  # frames: the JAX inference_fused's default, 15 s of audio
+FUSED_RUNS = 20  # warm calls timed per path
+BF16_ROUNDING = 2.0 ** -8  # one bf16 rounding, relative to the peak
+
+
+def _profiled(fn):
+    """One call of fn under torch.profiler, read from its Chrome trace as
+    tools/profile_torch_synth.py reads it: the host wall (ms), the card's
+    busy time (`observability.device_busy_ms`) and share of the wall, the
+    kernels the card ran, the launches the host made (kernel and graph
+    launches) and K1's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from styletts2_tpu_torch.observability import device_busy_ms
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        ev = json.loads(Path(f"{tmp}/trace.json").read_text())["traceEvents"]
+    busy = device_busy_ms(ev)
+    launches = [e for e in ev if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and (e["name"].startswith(("cudaLaunch", "cuLaunch"))
+                     or e["name"] == "cudaGraphLaunch")]
+    kernels = [e for e in ev if e.get("cat") == "kernel"]
+    return {"wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
+            "kernels": len(kernels), "host_launches": len(launches),
+            "k1": sum("adain_snake_kernel<" in e["name"] for e in kernels)}
+
+
+def _timed_ms(fn):
+    """Host ms of FUSED_RUNS warm calls of fn, each ending in a device sync
+    (the waveform comes back to the host)."""
+    from styletts2_tpu_torch.bench import _timed
+
+    return 1e3 * _timed(fn, FUSED_RUNS)
+
+
+class _FusedCase:
+    """Phase 26 on one Synthesizer: `inference_fused` at the bench's
+    utterance (budget 600) captured at its first call and held against an
+    eager run of the same program (`Synthesizer._fused`) on the card,
+    same-seed replays bit-equal and another seed's different, each replay
+    adding the K1 its capture recorded; warm timings of it and of the
+    staged path (`time`), and later one profiled call of each (`profile`:
+    torch.profiler leaves the host slower for the rest of the process, so
+    every path is timed before any is profiled). Every shape the graph gives
+    K1 must be one of phase 3's KERNEL_CASES, where K1 was held against its
+    plain version. `k1` sums its launches."""
+
+    def __init__(self, op, syn, tag, smi, per_decode, speed, ref_s=None):
+        from styletts2_tpu_torch.inference import _mix, _pack
+        from styletts2_tpu_torch.text import encode_text
+
+        self.op, self.syn, self.tag, self.smi, self.per_decode = op, syn, tag, smi, per_decode
+        self.kw = dict(frame_budget=FUSED_BUDGET, ref_s=ref_s, speed=speed)
+        self.fused = lambda seed=0: syn.inference_fused(BENCH_TEXT, seed=seed, **self.kw)
+        self.staged = lambda: syn.synthesize(BENCH_TEXT, ref_s=ref_s, seed=0, speed=speed).wav
+        with _Tally(op) as tally:
+            before = op.adain_snake.launches
+            wav = self.fused()
+            (key, self.graph), = syn.graphs.items()
+            again, other = self.fused(), self.fused(seed=1)
+            inputs = syn._inputs(encode_text(BENCH_TEXT), ref_s, None,
+                                 _mix(0.3, 0.7, speed=speed), 0)
+            with torch.inference_mode():
+                eager = _pack(*syn._fused(**inputs, frame_budget=FUSED_BUDGET, steps=5, scale=1.0,
+                                          generator=torch.Generator(syn.device).manual_seed(0)))
+            eager = eager.cpu().numpy()
+            eager = eager[: int(eager[-1]) * SAMPLES_PER_FRAME]
+            self.k1 = op.adain_snake.launches - before
+        decodes = 5  # the warm-up, 3 replays, the eager run
+        err = _rel(wav, eager) if wav.shape == eager.shape else float("inf")
+        tol = 1e-5 if syn.decoder_dtype == torch.float32 else BF16_ROUNDING
+        shapes = sorted(tally.shapes["K1"])
+        unchecked = [c for c in shapes if c not in KERNEL_CASES]
+        print(f"[{tag}] graph {key}: capture {self.graph.capture_s:.2f} s (warm-up and record), "
+              f"pool {self.graph.pool_bytes / 2 ** 20:.1f} MiB, K1 {self.graph.k1} per replay; "
+              f"replay vs eager on the card rel err {err:.2e} (tol {tol:g}), same seed bit-equal "
+              f"{np.array_equal(wav, again)}, seed 1 differs {not np.array_equal(wav, other)}; "
+              f"K1 {self.k1} in {decodes} decodes at {[c[0] for c in shapes]}, "
+              f"{len(unchecked)} of them not held in phase 3, {tally.plain} plain-version calls "
+              f"[{smi}]", flush=True)
+        if unchecked or not shapes:
+            raise RuntimeError(f"[{tag}] K1 ran at {unchecked}, not held against its plain "
+                               f"version in phase 3")
+        if not (np.isfinite(wav).all() and len(wav) % SAMPLES_PER_FRAME == 0 and err <= tol
+                and np.array_equal(wav, again) and not np.array_equal(wav, other)):
+            raise RuntimeError(f"[{tag}] inference_fused: replay vs eager {err:.2e}, or "
+                               f"same-seed replays differ, or seeds 0 and 1 agree")
+        if self.graph.k1 != per_decode or self.k1 != per_decode * decodes or tally.plain:
+            raise RuntimeError(f"[{tag}] K1: {self.graph.k1} recorded, {self.k1} counted for "
+                               f"{decodes} decodes of {per_decode}; {tally.plain} plain calls")
+        self.wav = wav
+
+    def time(self):
+        before = self.op.adain_snake.launches
+        self.lat = _timed_ms(self.fused)
+        for _ in range(2):
+            self.staged_wav = self.staged()
+        self.staged_lat = _timed_ms(self.staged)
+        self.k1 += self.op.adain_snake.launches - before
+        if self.k1 != self.per_decode * (5 + 2 + 2 * FUSED_RUNS):
+            raise RuntimeError(f"[{self.tag}] K1 {self.k1} after the timed calls")
+
+    def shared_pool(self):
+        """A second graph on the same Synthesizer (10 diffusion steps, a key
+        of the bench's extended sweep), captured into the first graph's
+        pool: the memory it adds beside the first's own pool, and after it
+        each graph's replay bit-equal to its earlier one."""
+        before = self.op.adain_snake.launches
+        wav10 = self.syn.inference_fused(BENCH_TEXT, diffusion_steps=10, **self.kw)
+        first, second = self.syn.graphs.values()
+        same = (np.array_equal(self.fused(), self.wav) and np.array_equal(
+            self.syn.inference_fused(BENCH_TEXT, diffusion_steps=10, **self.kw), wav10))
+        counted = self.op.adain_snake.launches - before
+        self.k1 += counted
+        print(f"[{self.tag}] a second graph (10 diffusion steps) captured into the first's pool "
+              f"added {second.pool_bytes / 2 ** 20:.1f} MiB to it (the first's own: "
+              f"{first.pool_bytes / 2 ** 20:.1f} MiB); then each graph's replay bit-equal to its "
+              f"earlier one: {same}; K1 {counted} [{self.smi}]", flush=True)
+        if not same or counted != 4 * self.per_decode:  # the warm-up and three replays
+            raise RuntimeError(f"[{self.tag}] graphs sharing a pool: replays differ, or K1 "
+                               f"{counted}")
+
+    def profile(self):
+        before = self.op.adain_snake.launches
+        prof = _profiled(self.fused)
+        counted = self.op.adain_snake.launches - before
+        self.k1 += counted
+        if not prof["k1"] == counted == self.graph.k1:
+            raise RuntimeError(f"[{self.tag}] the profiler saw {prof['k1']} K1 in one replay, "
+                               f"which counted {counted}, its capture recorded {self.graph.k1}")
+        _path_line(self.tag, f"inference_fused (budget {FUSED_BUDGET})", self.wav, self.lat, prof,
+                   self.smi, f", K1 {prof['k1']} in the replay (profiler)")
+        before = self.op.adain_snake.launches
+        prof = _profiled(self.staged)
+        self.k1 += self.op.adain_snake.launches - before
+        _path_line(self.tag, "staged inference", self.staged_wav, self.staged_lat, prof, self.smi)
+
+
+def _path_line(tag, what, wav, lat, prof, smi, extra=""):
+    audio = len(wav) / 24000.0
+    print(f"[{tag}] {what}: {audio:.3f} s audio, p50 {np.percentile(lat, 50):.2f} ms, p95 "
+          f"{np.percentile(lat, 95):.2f} ms, RTF {audio / (lat.mean() / 1e3):.1f}x over {len(lat)} "
+          f"warm calls; one profiled call: {prof['host_launches']} host launches, "
+          f"{prof['kernels']} kernels, device busy {prof['busy_ms']:.2f} of {prof['wall_ms']:.2f} "
+          f"ms ({100 * prof['busy_share']:.1f}%){extra} [{smi}]", flush=True)
+
+
+def _replay_against_cpu(op, cfg, tag, smi, speed, ref_s=None, text=BENCH_TEXT):
+    """One replay of `inference_fused` (budget 600, f32) of `text` (the
+    phase's utterance, ~309 of the 600 frames) on the card against
+    the same program run eagerly on the CPU, K1 there its plain version,
+    from the same weights, inputs and draws, held as phase 5 holds the
+    staged path: equal lengths, the waveform within 1e-3. The graph is
+    captured on a fresh Synthesizer with its draws kept (each draw's tensor
+    stays alive in the graph's pool, so after the replay it holds what the
+    replay drew), and the CPU run takes those draws in order. The source's
+    chaotic parts are zeroed in both: the iSTFTNet source's STFT phase, as
+    `_host_draws` zeroes it, and HiFi-GAN's harmonic sines, its noise kept
+    (`_noise_source`, as phase 23: a constant source leaves the Generator's
+    noise-branch AdaINs normalising their rows' rounding); HiFi-GAN's head
+    gets phase 8's gain. Returns K1's launches on the card."""
+    import styletts2_tpu_torch.models.decoder_istft as pdi
+    from styletts2_tpu_torch.inference import Synthesizer, _mix, _pack
+    from styletts2_tpu_torch.text import encode_text
+
+    card, host = (Synthesizer(cfg(), seed=0, device=d) for d in ("cuda", "cpu"))
+    if card.hifigan:
+        for m in (card, host):
+            m.models["decoder"].generator.conv_post.weight_g.mul_(0.01)
+    kept, feed = [], []
+    rand, randn, magphase, sines = torch.rand, torch.randn, pdi.stft_magphase, pdi.SineGen.forward
+
+    def shared(f):
+        def draw(size, *, generator=None, device=None, dtype=None):
+            if feed:  # the CPU run: the replay's draws, in order
+                t = next(feed[0])
+                if tuple(t.shape) != tuple(size):
+                    raise RuntimeError(f"[{tag}] the CPU draws {tuple(size)}, the card drew "
+                                       f"{tuple(t.shape)}")
+                return t.to("cpu", dtype or t.dtype)
+            out = f(size, generator=generator, device=device, dtype=dtype)
+            if torch.cuda.is_current_stream_capturing():
+                kept.append(out)
+            return out
+        return draw
+
+    torch.rand, torch.randn, pdi.stft_magphase = shared(rand), shared(randn), _zero_phase(magphase)
+    pdi.SineGen.forward = _noise_source if card.hifigan else sines
+    try:
+        before = op.adain_snake.launches
+        wav = card.inference_fused(text, frame_budget=FUSED_BUDGET, ref_s=ref_s, speed=speed)
+        launches = op.adain_snake.launches - before
+        inputs = card._inputs(encode_text(text), ref_s, None, _mix(0.3, 0.7, speed=speed), 0)
+        feed.append(iter(kept))
+        with torch.inference_mode():
+            want = _pack(*host._fused(**{k: v.cpu() for k, v in inputs.items()},
+                                      frame_budget=FUSED_BUDGET, steps=5, scale=1.0,
+                                      generator=torch.Generator().manual_seed(0))).numpy()
+        left = sum(1 for _ in feed[0])
+    finally:
+        torch.rand, torch.randn, pdi.stft_magphase = rand, randn, magphase
+        pdi.SineGen.forward = sines
+    want = want[: int(want[-1]) * SAMPLES_PER_FRAME]
+    err = _rel(wav, want) if wav.shape == want.shape else float("inf")
+    print(f"[{tag}] a replay against the CPU's eager run of the program (plain K1), the same "
+          f"weights, inputs and {len(kept)} draws: {len(wav)} / {len(want)} samples, waveform "
+          f"rel err {err:.2e} (tol 1e-3) [{smi}]", flush=True)
+    if not (kept and not left and np.isfinite(wav).all() and err < 1e-3):
+        raise RuntimeError(f"[{tag}] inference_fused: the card's replay and the CPU disagree "
+                           f"({err:.2e}), or {left} of {len(kept)} draws were not taken")
+    return launches
+
+
+def fused_phase(op, smi):
+    """Phase 26: the JAX Synthesizer's single-dispatch paths as CUDA graphs,
+    K1 inside, at full width with seeded weights: `inference_fused` (budget
+    600) for Config() and libritts_config() (the seeded voice), each with
+    the f32 and the bf16 decoder (`_FusedCase`), and
+    `Synthesizer(Config(), phase_a="fused")` against the staged path
+    (durations equal, waveform within 1e-5 of its peak; its phase-A graph
+    launches no K1, each decode 48). The utterance is pinned to ~7.85 s as
+    the bench pins it. Every path is timed, then each is profiled once. A
+    second graph shares the LJSpeech f32 graph's pool (`shared_pool`), and
+    one f32 replay per config is held against the CPU
+    (`_replay_against_cpu`). Returns the phase's K1 launches."""
+    from styletts2_tpu_torch.config import Config, libritts_config
+    from styletts2_tpu_torch.inference import Synthesizer
+
+    start, cases = time.perf_counter(), []
+    for name, cfg, per_decode in (("LJSpeech", Config, CALLS_PER_DECODE),
+                                  ("LibriTTS", libritts_config, CALLS_PER_HIFIGAN_DECODE)):
+        speed = ref_s = None
+        for dtype in ("float32", "bfloat16"):
+            syn = Synthesizer(cfg(), seed=0, device="cuda", decoder_dtype=dtype)
+            if speed is None:  # the f32 staged path's natural length, as bench.calibrate_speed
+                ref_s = syn.compute_style(_voice()) if syn.multispeaker else None
+                natural = syn.synthesize(BENCH_TEXT, ref_s=ref_s, seed=0).wav
+                speed = max(len(natural) / 24000.0 / TARGET_AUDIO_SEC, 1.0)
+                if name == "LJSpeech":
+                    lj_speed = speed
+                else:
+                    ms_speed, ms_ref_s = speed, ref_s
+            cases.append(_FusedCase(op, syn, f"26 fused {name} {dtype}", smi, per_decode, speed,
+                                    ref_s))
+    for case in cases:
+        case.time()
+    cases[0].shared_pool()
+
+    staged = Synthesizer(Config(), seed=0, device="cuda")
+    want = staged.synthesize(BENCH_TEXT, seed=0, speed=lj_speed)
+    fa = Synthesizer(Config(), seed=0, device="cuda", phase_a="fused")
+
+    def call():
+        return fa.synthesize(BENCH_TEXT, seed=0, speed=lj_speed)
+
+    with _Counts(op, fa.models["decoder"]) as c:
+        got, got2 = call(), call()
+        (key, graph), = fa.graphs.items()
+        lat = _timed_ms(call)
+    c.check(CALLS_PER_DECODE, "26 fused phase A")
+    err = _rel(got.wav, want.wav) if got.wav.shape == want.wav.shape else float("inf")
+    print(f"[26 fused phase A] graph {key}: capture {graph.capture_s:.2f} s, pool "
+          f"{graph.pool_bytes / 2 ** 20:.1f} MiB, K1 {graph.k1} per replay; against staged: "
+          f"durations equal {np.array_equal(got.pred_dur, want.pred_dur)}, waveform rel err "
+          f"{err:.2e} (tol 1e-5), style rel err {_rel(got.s_pred, want.s_pred):.2e}; two calls "
+          f"bit-equal {np.array_equal(got.wav, got2.wav)}; K1 {c.launches} in {c.decodes} "
+          f"decodes [{smi}]", flush=True)
+    if not (np.array_equal(got.pred_dur, want.pred_dur) and err <= 1e-5 and graph.k1 == 0
+            and np.array_equal(got.wav, got2.wav)):
+        raise RuntimeError("[26 fused phase A] phase_a='fused' disagrees with 'staged'")
+    for case in cases:
+        case.profile()
+    before = op.adain_snake.launches
+    prof = _profiled(call)
+    _path_line("26 fused phase A", "phase_a='fused' inference", got.wav, lat, prof, smi)
+    k1 = sum(case.k1 for case in cases) + c.launches + op.adain_snake.launches - before
+    del cases, staged, fa
+    torch.cuda.empty_cache()
+    k1 += _replay_against_cpu(op, Config, "26 fused LJSpeech vs CPU", smi, lj_speed)
+    k1 += _replay_against_cpu(op, libritts_config, "26 fused LibriTTS vs CPU", smi, ms_speed,
+                              ms_ref_s)
+    torch.cuda.empty_cache()
+    print(f"[26 fused] phase 26 in {time.perf_counter() - start:.1f} s wall [{smi}]", flush=True)
+    return k1
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only on a GPU")
+    start = time.perf_counter()
+
+    def done(phase):  # where the smoke's wall goes, against its time limit
+        print(f"[{phase} done] {time.perf_counter() - start:.1f} s into the smoke [{smi}]",
+              flush=True)
+
     sys.path.insert(0, str(REPO))
     from styletts2_tpu_torch.config import Config, libritts_config
     from styletts2_tpu_torch.inference import Synthesizer
@@ -2634,6 +2964,7 @@ def main():
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
 
     max_err, timings = kernel_phase(op, dev, smi)  # 3
+    done(3)
 
     # 4. LJSpeech path
     t0 = time.perf_counter()
@@ -2665,6 +2996,7 @@ def main():
     if not (s_err < 1e-4 and w_err < 1e-3):
         raise RuntimeError("GPU and CPU disagree")
     del syn
+    done(5)
 
     # 6. LibriTTS path: multispeaker, HiFi-GAN
     t0 = time.perf_counter()
@@ -2704,6 +3036,7 @@ def main():
     # 7. serving: the CLI's server
     build_dir = Path(op.__file__).resolve().parents[1] / "_build"
     sv, _ = serve_burst(op, serve, build_dir, smi, "7 serving", ms_speed)
+    done(7)
 
     # 8. LibriTTS references: a request and a batch on the card and on the CPU.
     # The random-init Generator drives its tanh head ~200x into saturation, so
@@ -2737,21 +3070,39 @@ def main():
         raise RuntimeError("inference_batch: GPU and CPU disagree")
 
     del ms, ms_cpu
+    done(8)
     bwd_err, bwd_timings = backward_phase(op, dev, smi)  # 9
+    done(9)
     train_k1, train_k2, f32_stage1 = training_phase(op, build_dir, smi)  # 10
+    done(10)
     training_reference_phase(dev)  # 11
+    done(11)
     (stage2_k1, stage2_k2), f32_stage2 = stage2_phase(op, build_dir, smi)  # 12, 13
+    done(13)
     stage2_reference_phase(dev)  # 14
+    done(14)
     bf16_k1 = bf16_serving_phase(op, serve, build_dir, smi)  # 15
+    done(15)
     mp_k1, mp_k2 = bf16_training_phase(op, build_dir, smi, f32_stage1, f32_stage2)  # 16
+    done(16)
     ref_k1 = reference_phase(op, serve, dev, build_dir, smi)  # 17
+    done(17)
     remat_k1, remat_k2 = remat_phase(op, build_dir, smi)  # 18
+    done(18)
     lt2_k1, lt2_k2 = libritts_stage2_phase(op, build_dir, smi, dev)  # 19
+    done(19)
     ddp_k1, ddp_k2 = ddp_wavlm_phase(op, build_dir, smi, dev)  # 20, 21
+    done(21)
     fid_k1, fid_k2 = fidelity_phase(op, smi)  # 22
+    done(22)
     tp_k1, tp_k2 = tp_phase(op, build_dir, smi)  # 23
+    done(23)
     bench_k1, bench_k2 = bench_phase(op, smi)  # 24
+    done(24)
     nb_k1, nb_k2 = notebook_phase(op, smi)  # 25
+    done(25)
+    fused_k1 = fused_phase(op, smi)  # 26
+    done(26)
 
     def row(t, shape, dtype):
         return {"shape": list(shape), "dtype": dtype, "ms": t["cold"][0], "plain_ms": t["cold"][1],
@@ -2765,7 +3116,7 @@ def main():
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:38",
         "launches": lj.launches + lt.launches + sv.launches + train_k1 + stage2_k1 + bf16_k1 + mp_k1
-        + ref_k1 + remat_k1 + lt2_k1 + ddp_k1 + fid_k1 + tp_k1 + bench_k1 + nb_k1,
+        + ref_k1 + remat_k1 + lt2_k1 + ddp_k1 + fid_k1 + tp_k1 + bench_k1 + nb_k1 + fused_k1,
         "max_abs_err": max_err["float32"],
         "ms": fwd["cold"][0], "plain_ms": fwd["cold"][1], "bound_ms": fwd["bound"],
         "bound_by": "bytes", "library_ms": None, "shape": list(fwd_shape),

@@ -17,17 +17,20 @@ through the speed control (`calibrate_speed`): random-init durations run
 ~8x long. Each run times 20 calls after a warm-up (`headline_once`); a call
 returns the waveform on the host, so it ends in a device sync. "extra" adds
 the latency percentiles, the batched aggregate RTF (`inference_batch`,
-B = 8) and the bf16 decoder's single-stream RTF.
+B = 8), the single-dispatch path's RTF and p50 latency (`inference_fused`
+at its 600-frame budget, one CUDA graph on a card; the first call
+captures it; `fused_rtf`, `fused_latency_p50_ms`) and the bf16 decoder's
+single-stream RTF.
 
 STYLETTS2_BENCH_FULL=1 prints instead the extended matrix
 (`bench_extended`, indented JSON): LibriTTS zero-shot (10 steps, CFG 1.5),
 B = 32 and long-form with a HiFi-GAN decoder, and the steps x CFG sweep.
 
-Where it departs from the JAX bench: no fused single-dispatch path (a TPU
-workaround the port does not carry), no PCM16 output and no compile cache
-(nothing is compiled), and no caught failures: a failing phase or worker
-raises, so the bench never exits 0 with a phase missing. It runs on the
-card unless `--device cpu` asks for the CPU, in f32 with TF32 off.
+Where it departs from the JAX bench: no PCM16 output and no compile cache
+(nothing is compiled but the CUDA graph, at its first call), and no caught
+failures: a failing phase or worker raises, so the bench never exits 0
+with a phase missing. It runs on the card unless `--device cpu` asks for
+the CPU, in f32 with TF32 off.
 """
 
 from __future__ import annotations
@@ -145,6 +148,15 @@ def bench(device: str = "cuda", n_procs: int = 3) -> Dict:
     blat = _timed(batched, 8)
     extra["batched_B8_rtf"] = round(batch_audio / float(np.mean(blat)), 1)
     extra["batched_B8_latency_ms"] = round(float(np.mean(blat)) * 1e3, 1)
+
+    # the single-dispatch path (a CUDA graph on a card), at the same speed
+    def fused():
+        return syn.inference_fused(TEXT, diffusion_steps=STEPS, seed=0, speed=speed)
+
+    fwav = fused()  # captures the graph
+    flat = _timed(fused, 10)
+    extra["fused_rtf"] = round(len(fwav) / SR / float(np.mean(flat)), 1)
+    extra["fused_latency_p50_ms"] = round(float(np.percentile(flat, 50)) * 1e3, 1)
 
     # the bf16 decoder, single stream, at the f32 path's speed
     syn16 = _synthesizer(device, decoder_dtype="bfloat16")

@@ -251,17 +251,24 @@ def finetune_config() -> Config:
                   loss_params=LossParams(TMA_epoch=0, diff_epoch=0, joint_epoch=10))
 
 
-def load_config(path: str) -> Config:
-    """Load a reference-format YAML config (configs/*.yml); a JSON file (a
-    YAML subset, as the trainer writes a Config's copy) needs no PyYAML."""
-    with open(path) as f:
-        text = f.read()
+def parse_config(text: str):
+    """A config file's text -> (its dict, the function that writes such a
+    dict back as text in the file's format). JSON (a YAML subset, as the
+    trainer writes a Config's copy) needs no PyYAML; YAML goes through it
+    (ImportError without it)."""
     try:
-        return Config.from_dict(json.loads(text))
+        return json.loads(text), lambda d: json.dumps(d, indent=1)
     except json.JSONDecodeError:
         import yaml
 
-        return Config.from_dict(yaml.safe_load(text))
+        return yaml.safe_load(text), yaml.safe_dump
+
+
+def load_config(path: str) -> Config:
+    """Load a reference-format YAML config (configs/*.yml) or a JSON one
+    (`parse_config`)."""
+    with open(path) as f:
+        return Config.from_dict(parse_config(f.read())[0])
 
 
 def config_from_path(path: str) -> Config:

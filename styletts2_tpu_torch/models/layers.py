@@ -14,6 +14,8 @@ islands.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional
 
@@ -226,12 +228,29 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     return torch.repeat_interleave(x, 2, dim=-1)
 
 
+_MASKED_LSTMS = contextvars.ContextVar("masked_lstms", default=False)
+
+
+@contextlib.contextmanager
+def masked_lstms():
+    """Within it, every `BiLSTM` given lengths runs `BiLSTM.masked`, which
+    never reads the lengths on the host, so that a CUDA graph can capture
+    it; the single-dispatch programs of `inference.py` run under it.
+    Elsewhere the lengths go through `pack_padded_sequence`."""
+    token = _MASKED_LSTMS.set(True)
+    try:
+        yield
+    finally:
+        _MASKED_LSTMS.reset(token)
+
+
 class BiLSTM(nn.LSTM):
     """Bidirectional one-layer LSTM on (B, T, C) -> (B, T, 2H).
 
-    With `lengths`, padded steps output 0 and the reverse direction starts at
-    each row's last valid step, as the JAX package's masked scan does; that
-    is `pack_padded_sequence` semantics. `lengths` lives on the host."""
+    With `lengths` (B,), padded steps output 0 and the reverse direction
+    starts at each row's last valid step, as the JAX package's masked scan
+    does; that is `pack_padded_sequence` semantics, which reads the lengths
+    on the host, or `masked` under `masked_lstms()`."""
 
     def __init__(self, input_size: int, hidden: int):
         super().__init__(input_size, hidden, num_layers=1, batch_first=True,
@@ -239,9 +258,29 @@ class BiLSTM(nn.LSTM):
 
     def forward(self, x, lengths: Optional[torch.Tensor] = None):
         T = x.shape[1]
+        if lengths is not None and _MASKED_LSTMS.get():
+            return self.masked(x, lengths)
         if lengths is None or bool((lengths >= T).all()):
             return super().forward(x)[0]
         packed = pack_padded_sequence(x, lengths.cpu().to(torch.int64), batch_first=True,
                                       enforce_sorted=False)
         out, _ = super().forward(packed)
         return pad_packed_sequence(out, batch_first=True, total_length=T)[0]
+
+    def masked(self, x, lengths: torch.Tensor) -> torch.Tensor:
+        """The packed semantics with no host sync and no data-dependent
+        shape: one LSTM call over 2B rows, x as it is (its forward direction
+        reads each row's valid steps first) and x with each row rolled right
+        by T - length, its valid steps last (the reverse direction reads
+        them first, the padding after); the reverse outputs are rolled back
+        and the padded steps zeroed."""
+        B, T, _ = x.shape
+        lengths = lengths.to(x.device)[:, None]
+        t = torch.arange(T, device=x.device)[None, :]
+        right = ((t + lengths) % T)[..., None]  # right[b, t] = x[b, (t + L) mod T]
+        xr = torch.gather(x, 1, right.expand(-1, -1, x.shape[2]))
+        out = super().forward(torch.cat([x, xr]))[0]
+        H = self.hidden_size
+        back = ((t + T - lengths) % T)[..., None].expand(-1, -1, H)
+        rev = torch.gather(out[B:, :, H:], 1, back)
+        return torch.cat([out[:B, :, :H], rev], dim=-1).masked_fill(~(t < lengths)[..., None], 0.0)

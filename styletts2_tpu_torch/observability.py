@@ -4,7 +4,8 @@ log directory and INFO lines to the console; `MetricsWriter` appends one
 JSON line per record and writes eval audio as WAV files and attention maps
 as .npy files beside it (no TensorBoard, no matplotlib). `StepTimer` is an
 EMA step meter, `trace` a torch.profiler trace written as a Chrome trace,
-and `nan_check` names the non-finite leaves of nested metrics or tensors."""
+`device_busy_ms` reads the card's busy time from one, and `nan_check`
+names the non-finite leaves of nested metrics or tensors."""
 
 from __future__ import annotations
 
@@ -122,6 +123,24 @@ def trace(log_dir: str, enabled: bool = True):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{time.time_ns()}.json"))
+
+
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")  # a Chrome trace's device categories
+
+
+def device_busy_ms(events) -> float:
+    """The card's busy time (ms) in a Chrome trace's `traceEvents`: the
+    union of its kernels', copies' and memsets' intervals over every
+    stream, so that kernels overlapping on two streams count once (the
+    record_function spans the trace also places on the device are not
+    work). Over the wall of the traced call it is the device's busy
+    share."""
+    busy, reach = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                       if e.get("cat") in DEVICE_WORK):
+        busy += max(b - max(a, reach), 0.0)
+        reach = max(reach, b)
+    return busy / 1e3
 
 
 def _leaves(tree, path: str = ""):

@@ -15,7 +15,9 @@ falls back from a kernel: a CUDA input a kernel cannot take, or a launch
 the card refuses, raises. Both kernels split each (b, c) row over a
 thread-block cluster of `_plan(...).k` blocks that hold their slices in
 shared memory. `adain_snake.launches` counts forward launches,
-`adain_snake.bwd_launches` backward ones.
+`adain_snake.bwd_launches` backward ones. A launch that a CUDA graph
+captures counts when the graph replays it (`recorded`, `replayed`): the
+launch goes to the current stream, the capture's while it captures.
 """
 
 from __future__ import annotations
@@ -313,3 +315,25 @@ def adain_snake(x, gamma, beta, alpha):
 
 adain_snake.launches = 0
 adain_snake.bwd_launches = 0
+
+
+@contextlib.contextmanager
+def recorded():
+    """Around the capture of a CUDA graph: the forward launches made inside
+    are recorded into the graph, not run, so they leave
+    `adain_snake.launches` as it was. Yields a one-item list that holds
+    their number on exit; the graph's owner adds it back at each replay
+    (`replayed`), when the kernels run. The plan and the library must be
+    ready before the capture: a warm-up run on the same shapes does that."""
+    before = adain_snake.launches
+    count = [0]
+    try:
+        yield count
+    finally:
+        count[0] = adain_snake.launches - before
+        adain_snake.launches = before
+
+
+def replayed(launches: int) -> None:
+    """Count the forward launches of one replay of a captured graph."""
+    adain_snake.launches += launches

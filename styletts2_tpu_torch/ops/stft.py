@@ -25,11 +25,16 @@ def hann_window(win_length: int, periodic: bool = True) -> np.ndarray:
     return w[:win_length].astype(np.float32)
 
 
-def _padded_window(n_fft: int, win_length: int, device) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _padded_window(n_fft: int, win_length: int, device: torch.device) -> torch.Tensor:
+    """The Hann window zero-padded to n_fft, made once per device: a CUDA
+    graph cannot capture a copy from pageable host memory. Made outside
+    inference mode, so that training can save it for its backward."""
     w = np.zeros(n_fft, dtype=np.float32)
     lpad = (n_fft - win_length) // 2
     w[lpad: lpad + win_length] = hann_window(win_length)
-    return torch.from_numpy(w).to(device)
+    with torch.inference_mode(False):
+        return torch.from_numpy(w).to(device)
 
 
 def stft(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int) -> torch.Tensor:
@@ -59,11 +64,14 @@ def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _ola_window_sumsq(n_frames: int, n_fft: int, hop: int, win_length: int) -> np.ndarray:
-    """Overlap-added squared window, with ~0 entries set to 1 (f32)."""
-    w2 = _padded_window(n_fft, win_length, "cpu").double() ** 2
+def _ola_window_sumsq(n_frames: int, n_fft: int, hop: int, win_length: int,
+                      device: torch.device) -> torch.Tensor:
+    """Overlap-added squared window, with ~0 entries set to 1 (f32), made
+    once per shape and device as `_padded_window` is."""
+    w2 = _padded_window(n_fft, win_length, torch.device("cpu")).double() ** 2
     acc = overlap_add(w2.expand(1, n_frames, n_fft), hop)[0].float().numpy()
-    return np.where(acc > 1e-11, acc, 1.0).astype(np.float32)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.where(acc > 1e-11, acc, 1.0).astype(np.float32)).to(device)
 
 
 def istft(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int, hop_length: int,
@@ -75,8 +83,7 @@ def istft(magnitude: torch.Tensor, phase: torch.Tensor, n_fft: int, hop_length: 
     frames = frames * _padded_window(n_fft, win_length, frames.device)
     nF = frames.shape[-2]
     y = overlap_add(frames, hop_length)
-    wss = torch.from_numpy(_ola_window_sumsq(nF, n_fft, hop_length, win_length))
-    y = y / wss.to(y.device)
+    y = y / _ola_window_sumsq(nF, n_fft, hop_length, win_length, y.device)
     half = n_fft // 2
     return y[..., half: y.shape[-1] - half]
 

@@ -14,9 +14,11 @@ Endpoints:
     GET  /voices           voice names loaded from --voices at startup
     POST /tts              JSON {"text": "...", optional: "voice", "alpha",
                            "beta", "diffusion_steps", "embedding_scale",
-                           "speed", "seed"} -> audio/wav (24 kHz 16-bit PCM).
-                           The text is pre-phonemized IPA, as in the
-                           reference notebooks.
+                           "speed", "seed", "raw_text"} -> audio/wav (24 kHz
+                           16-bit PCM). The text is pre-phonemized IPA, as in
+                           the reference notebooks; with "raw_text": true it is
+                           plain text for `text.phonemize` (espeak-ng), and a
+                           server without the phonemizer answers 501.
 
 Run (on a CUDA card; --device cpu for a machine without one):
     python -m styletts2_tpu_torch.serve --config configs/config_libritts.yml \\
@@ -171,7 +173,12 @@ class TTSServer:
         if not text or not isinstance(text, str):
             raise ValueError("missing 'text'")
         if body.get("raw_text"):
-            raise ValueError("'raw_text' is not supported: send phonemized IPA text")
+            from styletts2_tpu_torch.text import phonemize
+
+            try:
+                text = phonemize(text)
+            except ImportError as e:  # the optional frontend: the server cannot, the client may
+                raise NotImplementedError(str(e)) from e
         ref_s = None
         voice = body.get("voice")
         if voice is not None:
@@ -235,6 +242,8 @@ class TTSServer:
                     wav = server.handle_tts(json.loads(self.rfile.read(n) or b"{}"))
                 except ValueError as e:
                     self._send_json(400, {"error": str(e)})
+                except NotImplementedError as e:  # raw_text without a phonemizer
+                    self._send_json(501, {"error": str(e)})
                 except Exception as e:
                     self._send_json(500, {"error": f"{type(e).__name__}: {e}"})
                 else:

@@ -58,6 +58,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
 import os
 import re
 import shutil
@@ -66,7 +67,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from styletts2_tpu_torch.config import Config, config_from_path
+from styletts2_tpu_torch.config import Config, config_from_path, parse_config
 from styletts2_tpu_torch.convert import hf_model_dir, state_dict_from_reference, wavlm_from_hf
 from styletts2_tpu_torch.data.meldataset import build_dataloader
 from styletts2_tpu_torch.models.build import build_training_models
@@ -261,8 +262,8 @@ def run_stage(stage: str, config: Union[Config, str], max_steps: Optional[int] =
         else:
             if lead:
                 line = write_sigma_data(config_copy, state.sigma_data)
-                logger.info(f"sigma_data {state.sigma_data!r} written into {config_copy}: {line}"
-                            if line else f"{config_copy} has no sigma_data line: left as it is")
+                if line:
+                    logger.info(f"sigma_data {state.sigma_data!r} written into {config_copy}: {line}")
             _save(saver, os.path.join(log_dir, f"{stage}_final.pth"), state, lead)
     finally:
         saver.close()
@@ -334,19 +335,36 @@ _SIGMA_LINE = re.compile(r'^(\s*"?sigma_data"?\s*:\s*)([^,\s]+)', re.M)
 
 
 def write_sigma_data(path: str, sigma: float) -> Optional[str]:
-    """Set the value on the first `sigma_data:` line of the YAML (or JSON)
-    config at `path`, without a YAML library; returns the line as written,
-    or None when the file has no such line."""
+    """Write `sigma` into the config copy at `path` as
+    model_params.diffusion.dist.sigma_data (the JAX `train/run.py:321-329`).
+    An existing `sigma_data:` line is edited in place, the rest of the file
+    kept as it is. Without one, a JSON file is rewritten through `json` and
+    a YAML file through PyYAML, the missing keys created. Returns the line
+    as written, or None for a YAML file without the line where PyYAML
+    cannot be imported: the file is then left as it is, and the run's
+    logger warns."""
     with open(path) as f:
         text = f.read()
+    sigma = float(sigma)
     m = _SIGMA_LINE.search(text)
-    if m is None:
-        return None
-    text = text[: m.start(2)] + repr(float(sigma)) + text[m.end(2):]
+    if m is not None:
+        text = text[: m.start(2)] + repr(sigma) + text[m.end(2):]
+        end = text.find("\n", m.start())
+        line = text[m.start(): end if end >= 0 else len(text)].strip()
+    else:
+        try:
+            raw, dump = parse_config(text)
+        except ImportError:
+            logging.getLogger("styletts2_tpu_torch").warning(
+                f"{path} has no sigma_data line and PyYAML is not installed: "
+                f"sigma_data {sigma!r} not written")
+            return None
+        raw.setdefault("model_params", {}).setdefault("diffusion", {}).setdefault(
+            "dist", {})["sigma_data"] = sigma
+        text, line = dump(raw), f"model_params.diffusion.dist.sigma_data: {sigma!r}"
     with open(path, "w") as f:
         f.write(text)
-    end = text.find("\n", m.start())
-    return text[m.start(): end if end >= 0 else len(text)].strip()
+    return line
 
 
 def main(argv=None):

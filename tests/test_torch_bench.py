@@ -13,7 +13,10 @@ and their fixtures against the JAX package's:
   (forward and backward), and its cuDNN RNN formula on packed and padded
   shapes;
 - `bench_train --device cpu` prints one JSON line with the JAX bench's
-  keys for stage first and second.
+  keys for stage first and second;
+- `bench.bench` (a tiny-width synthesizer on the CPU) returns the JAX
+  bench's keys and extras, the single-dispatch `fused_rtf` and
+  `fused_latency_p50_ms` among them.
 The ratio of the port's FLOP count to XLA's for the tiny stage-1 step is
 `tools/flops_torch_vs_jax.py`'s (it compiles the JAX step: minutes).
 """
@@ -149,3 +152,43 @@ def test_bench_train_prints_the_jax_keys(stage, capsys, four_threads):
     assert out["stage"] == stage and out["widths"] == "tiny" and out["batch"] == 2
     assert out["backend"] == "cpu" and out["mfu"] is None and out["mesh"] is None
     assert out["flops_per_step"] > 0 and np.isfinite(out["g_loss"]) and out["sec_per_step"] > 0
+
+
+# bench.py:236-311, the synthesis line's extras (the bf16 decoder's without PCM16)
+JAX_BENCH_EXTRA = {"audio_sec_per_utt", "latency_p50_ms", "latency_p95_ms", "latency_mean_ms",
+                   "n_runs", "natural_uncalibrated_sec", "rtf_runs", "rtf_min", "rtf_max",
+                   "n_procs", "batched_B8_rtf", "batched_B8_latency_ms", "fused_rtf",
+                   "fused_latency_p50_ms", "bf16_decoder_rtf"}
+
+
+def test_bench_reports_the_jax_keys(monkeypatch, four_threads):
+    """`bench.bench` on the CPU at tiny widths, one process, one timed call
+    a path at ~2 s of audio: the JAX bench's keys, its extras with the
+    fused path's RTF and p50 latency."""
+    from styletts2_tpu_torch.config import Config
+    from styletts2_tpu_torch.inference import Synthesizer
+
+    def tiny(device, **kw):
+        cfg = Config()
+        cfg.plbert_params.num_hidden_layers = 1
+        cfg.plbert_params.hidden_size = 64
+        cfg.plbert_params.intermediate_size = 128
+        cfg.plbert_params.num_attention_heads = 2
+        cfg.model_params.hidden_dim = 64
+        cfg.model_params.style_dim = 32
+        cfg.model_params.dim_in = 16
+        cfg.model_params.diffusion.transformer.num_layers = 1
+        cfg.model_params.decoder.upsample_initial_channel = 32
+        cfg.model_params.decoder.resblock_kernel_sizes = [3]
+        cfg.model_params.decoder.resblock_dilation_sizes = [[1, 3, 5]]
+        return Synthesizer(cfg, seed=0, device=device, **kw)
+
+    timed = bench._timed
+    monkeypatch.setattr(bench, "_synthesizer", tiny)
+    monkeypatch.setattr(bench, "_timed", lambda fn, n: timed(fn, 1))  # one timed call a path
+    monkeypatch.setattr(bench, "TARGET_AUDIO_SEC", 2.0)  # ~2 s utterances: a CPU's budget
+    out = bench.bench("cpu", n_procs=1)
+    assert set(out) == {"metric", "value", "unit", "vs_baseline", "extra"}
+    assert set(out["extra"]) == JAX_BENCH_EXTRA
+    assert out["extra"]["fused_rtf"] > 0 and out["extra"]["fused_latency_p50_ms"] > 0
+    assert out["value"] > 0 and out["extra"]["n_procs"] == 1

@@ -267,3 +267,96 @@ def test_tensor_parallel_layers_match_the_full_ones(cuda, tmp_path):
     for rank in range(2):
         errs = torch.load(tmp_path / f"errs{rank}")
         assert max(errs) <= 1e-5, errs
+
+
+def _tiny_synthesizer(config, device, **kw):
+    """A Synthesizer of `config` ("ljspeech": iSTFTNet, 48 K1 per decode;
+    "libritts": multispeaker HiFi-GAN, 96) at narrow widths, seed 0."""
+    from styletts2_tpu_torch.config import Config, libritts_config
+    from styletts2_tpu_torch.inference import Synthesizer
+
+    cfg = libritts_config() if config == "libritts" else Config()
+    cfg.plbert_params.num_hidden_layers = 1
+    cfg.plbert_params.hidden_size = 64
+    cfg.plbert_params.intermediate_size = 128
+    cfg.plbert_params.num_attention_heads = 2
+    cfg.model_params.hidden_dim = 64
+    cfg.model_params.style_dim = 32
+    cfg.model_params.dim_in = 16
+    cfg.model_params.diffusion.transformer.num_layers = 1
+    cfg.model_params.decoder.upsample_initial_channel = 64
+    return Synthesizer(cfg, seed=0, device=device, **kw)
+
+
+FUSED_TEXT = "ðɪs ɪz ɐ tˈɛst ʌv ðə pˈɔːɹt."
+
+
+@pytest.mark.parametrize("config,per_decode", [("ljspeech", 48), ("libritts", 96)])
+def test_fused_graph_replay_equals_eager(cuda, config, per_decode):
+    """`inference_fused` on the card is one CUDA graph: a replay equals an
+    eager run of the same program with the same seed, same-seed replays
+    are bit-equal and another seed's differ, and each replay adds the K1
+    launches its capture recorded (the capture itself adds none)."""
+    import numpy as np
+
+    from styletts2_tpu_torch.inference import _mix, _pack
+    from styletts2_tpu_torch.text import encode_text
+
+    syn = _tiny_synthesizer(config, cuda)
+    ref_s = (0.5 * np.random.default_rng(0).standard_normal((1, 64))).astype(np.float32) \
+        if syn.multispeaker else None
+    kw = dict(frame_budget=120, ref_s=ref_s, diffusion_steps=3, speed=4.0)
+    before = adain_snake.launches
+    wav = syn.inference_fused(FUSED_TEXT, seed=0, **kw)
+    (graph,) = syn.graphs.values()
+    assert graph.k1 == per_decode
+    assert adain_snake.launches - before == 2 * per_decode  # the warm-up and one replay
+    before = adain_snake.launches
+    again, other = (syn.inference_fused(FUSED_TEXT, seed=s, **kw) for s in (0, 1))
+    assert adain_snake.launches - before == 2 * per_decode and len(syn.graphs) == 1
+    assert np.array_equal(wav, again) and not np.array_equal(wav, other)
+    inputs = syn._inputs(encode_text(FUSED_TEXT), ref_s, None, _mix(0.3, 0.7, speed=4.0), 0)
+    with torch.inference_mode():
+        eager = _pack(*syn._fused(**inputs, frame_budget=120, steps=3, scale=1.0,
+                                  generator=torch.Generator(cuda).manual_seed(0))).cpu().numpy()
+    eager = eager[: int(eager[-1]) * 600]
+    assert eager.shape == wav.shape and np.isfinite(wav).all()
+    assert np.abs(wav - eager).max() <= 1e-5 * np.abs(eager).max()
+
+
+def test_phase_a_graph_equals_staged(cuda):
+    """Synthesizer(phase_a="fused") on the card: text, style and duration
+    replayed as one graph (no K1 in it), the durations and the waveform
+    those of the staged path."""
+    import numpy as np
+
+    staged = _tiny_synthesizer("ljspeech", cuda)
+    fused = _tiny_synthesizer("ljspeech", cuda, phase_a="fused")
+    want = staged.synthesize(FUSED_TEXT, diffusion_steps=3, speed=4.0, seed=2)
+    got = fused.synthesize(FUSED_TEXT, diffusion_steps=3, speed=4.0, seed=2)
+    (graph,) = fused.graphs.values()
+    assert graph.k1 == 0
+    np.testing.assert_array_equal(got.pred_dur, want.pred_dur)
+    assert got.wav.shape == want.wav.shape
+    assert np.abs(got.wav - want.wav).max() <= 1e-5 * np.abs(want.wav).max()
+
+
+def test_graphs_of_one_synthesizer_share_a_pool(cuda):
+    """A Synthesizer's graphs share the first one's memory pool: a phase-A
+    graph and two `inference_fused` graphs (budgets 120 and 60) replayed in
+    turn each give what their first call gave, bit for bit."""
+    import numpy as np
+
+    syn = _tiny_synthesizer("ljspeech", cuda, phase_a="fused")
+    calls = [lambda: syn.synthesize(FUSED_TEXT, diffusion_steps=3, speed=4.0, seed=1).wav,
+             lambda: syn.inference_fused(FUSED_TEXT, frame_budget=120, diffusion_steps=3,
+                                         speed=4.0),
+             lambda: syn.inference_fused(FUSED_TEXT, frame_budget=60, diffusion_steps=3,
+                                         speed=4.0)]
+    first = [call() for call in calls]
+    graphs = list(syn.graphs.values())
+    assert len(graphs) == 3
+    assert all(g.graph.pool() == graphs[0].graph.pool() for g in graphs)
+    for _ in range(2):
+        for call, want in zip(calls[::-1], first[::-1]):
+            np.testing.assert_array_equal(call(), want)

@@ -47,6 +47,18 @@ def test_nan_check_names_the_bad_leaves(caplog):
     assert obs.nan_check({"a": [torch.ones(2)], "b": 3.0, "c": None})
 
 
+def test_device_busy_ms_is_the_union_of_device_intervals():
+    ev = [{"cat": "kernel", "ts": 0.0, "dur": 1000.0},  # 0-1 ms
+          {"cat": "kernel", "ts": 500.0, "dur": 1000.0},  # 0.5-1.5 ms, another stream
+          {"cat": "gpu_memcpy", "ts": 2000.0, "dur": 250.0},
+          {"cat": "gpu_memset", "ts": 2100.0, "dur": 50.0},  # inside the copy
+          {"cat": "gpu_user_annotation", "ts": 0.0, "dur": 9000.0},  # a span, not work
+          {"cat": "cuda_runtime", "ts": 3000.0, "dur": 700.0},  # the host
+          {"ph": "M", "name": "process_name"}]
+    assert obs.device_busy_ms(ev) == pytest.approx(1.75)
+    assert obs.device_busy_ms([]) == 0.0
+
+
 def test_trace_writes_a_chrome_trace(tmp_path):
     with obs.trace(str(tmp_path / "traces")) as prof:
         torch.relu(torch.randn(64, 64) @ torch.randn(64, 64))

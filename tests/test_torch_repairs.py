@@ -11,6 +11,7 @@ durations, the style within 1e-4 of its peak.
 
 import io
 import json
+import sys
 import types
 import urllib.request
 import wave
@@ -28,7 +29,8 @@ from styletts2_tpu_torch.train import run
 from styletts2_tpu_torch.train.state import TrainState, build_optimizers, save_checkpoint
 from test_torch_stage2_run import small_aux_models  # noqa: F401 (a fixture)
 from test_torch_train_run import TINY
-from torch_parity import jax_cfg, jax_models_and_params, port_cfg, rel_err, zero_noise
+from torch_parity import (jax_cfg, jax_models_and_params, port_cfg, rel_err, stable_har_phase,
+                          zero_noise)
 
 TEXT = "ðɪs ɪz ɐ tˈɛst."
 
@@ -145,3 +147,140 @@ def test_entry_points_leave_tf32_off(tmp_path, monkeypatch):
             parse_args(argv)
     with pytest.raises(SystemExit):
         run.main(["first", "--config_path", "configs/config.yml", "--tf32"])
+
+
+RAW = ' "This is a test." '
+
+
+class StubEspeak:
+    """phonemizer's espeak-ng backend, stubbed (neither machine has
+    espeak-ng): the IPA of the one sentence the tests send. Records the
+    texts and options it was given."""
+
+    calls = []
+
+    def __init__(self, language, preserve_punctuation, with_stress):
+        self.options = (language, preserve_punctuation, with_stress)
+
+    def phonemize(self, texts):
+        StubEspeak.calls.append((self.options, list(texts)))
+        return ["ðɪs ɪz ɐ tˈɛst ."]
+
+
+def stub_phonemizer(monkeypatch):
+    StubEspeak.calls = []
+    backend = types.ModuleType("phonemizer.backend")
+    backend.EspeakBackend = StubEspeak
+    package = types.ModuleType("phonemizer")
+    package.backend = backend
+    monkeypatch.setitem(sys.modules, "phonemizer", package)
+    monkeypatch.setitem(sys.modules, "phonemizer.backend", backend)
+
+
+def test_raw_text_is_phonemized_as_jax(monkeypatch):
+    """`raw_text=True` runs the text through `text.phonemize` before
+    encoding it, as the JAX Synthesizer's `inference(raw_text=True)` does:
+    under the same stub backend the tokens, the durations and the waveform
+    are JAX's, and equal the port's own run on the IPA it phonemized."""
+    from styletts2_tpu import text as jtext
+    from styletts2_tpu.inference import Synthesizer as JaxSynthesizer
+    from styletts2_tpu_torch import text as ptext
+    from styletts2_tpu_torch.inference import Synthesizer
+
+    stub_phonemizer(monkeypatch)
+    ipa = ptext.phonemize(RAW)
+    assert ipa == jtext.phonemize(RAW)
+    assert StubEspeak.calls[0] == (("en-us", True, True), ["This is a test."])
+    np.testing.assert_array_equal(ptext.encode_text(ipa), jtext.encode_text(ipa))
+    jcfg = jax_cfg()
+    _, params = jax_models_and_params(jcfg, seed=8)
+    jsyn = JaxSynthesizer(jcfg, params=params)
+    psyn = Synthesizer(port_cfg(jcfg), state_dict=state_dict_from_jax(params, port_cfg(jcfg)),
+                       device="cpu")
+    noise = np.random.default_rng(9).standard_normal(
+        (1, 1, 2 * jcfg.model_params.style_dim)).astype(np.float32)
+    kw = dict(noise=noise, diffusion_steps=3, speed=4.0)
+    with zero_noise(), stable_har_phase():
+        want_wav, want_s = jsyn.inference(RAW, raw_text=True, **kw)
+        got = psyn.synthesize(RAW, raw_text=True, **kw)
+        from_ipa = psyn.synthesize(ipa, **kw)
+    assert len(got.pred_dur) == len(ptext.encode_text(ipa))
+    np.testing.assert_array_equal(got.pred_dur, from_ipa.pred_dur)
+    np.testing.assert_array_equal(got.wav, from_ipa.wav)
+    assert got.wav.shape == want_wav.shape
+    assert rel_err(got.s_pred, want_s) < 1e-4
+    assert rel_err(got.wav, want_wav) < 1e-3
+    wav, _ = psyn.inference(RAW, raw_text=True, **kw)
+    assert wav.shape == got.wav.shape
+
+
+def test_server_phonemizes_raw_text(tmp_path, monkeypatch):
+    """The server answers `"raw_text": true` by phonemizing the text (the
+    JAX server's `handle_tts`), and with 501 where the phonemizer is not
+    installed."""
+    server = make_server(parse_args(["--config", str(_config(tmp_path)), "--device", "cpu",
+                                     "--window-ms", "1"]))
+    port = server.start_background()
+    body = {"text": RAW, "raw_text": True, "diffusion_steps": 3, "speed": 8.0}
+    try:
+        monkeypatch.setitem(sys.modules, "phonemizer", None)  # not installed
+        with pytest.raises(urllib.error.HTTPError) as err:
+            _post(port, body)
+        assert err.value.code == 501
+        stub_phonemizer(monkeypatch)
+        code, wav = _post(port, body)
+        assert code == 200 and StubEspeak.calls
+        code, ipa_wav = _post(port, {**body, "text": "ðɪs ɪz ɐ tˈɛst .", "raw_text": False})
+        assert code == 200 and wav == ipa_wav
+    finally:
+        server.close()
+
+
+@pytest.mark.parametrize("kind", ["json", "yaml"])
+def test_sigma_data_written_where_the_copy_has_no_line(tmp_path, kind):
+    """A config copy without a sigma_data line gets
+    model_params.diffusion.dist.sigma_data, the missing keys created (the
+    JAX trainer's write-back): the finetune notebook's JSON config through
+    json, a YAML one through PyYAML; the rest of the config as it was."""
+    cfg = {"log_dir": "logs", "epochs_2nd": 1, "batch_size": 2,
+           "data_params": {"train_data": "train_list.txt"},
+           "loss_params": {"diff_epoch": 0, "joint_epoch": 100}}
+    if kind == "json":  # the config examples/torch/finetune_demo.ipynb writes
+        nb = json.loads(open("examples/torch/finetune_demo.ipynb").read())
+        ns = {"root": "ft", "LITE": False}
+        cell = next("".join(c["source"]) for c in nb["cells"]
+                    if c["cell_type"] == "code" and "cfg = {" in "".join(c["source"]))
+        exec(cell.split("if LITE:")[0], ns)
+        cfg = ns["cfg"]
+        path = tmp_path / "config_ft.json"
+        path.write_text(json.dumps(cfg, indent=1))
+    else:
+        path = tmp_path / "config.yml"
+        path.write_text(yaml.safe_dump(cfg))
+    assert "sigma_data" not in path.read_text()
+    line = run.write_sigma_data(str(path), 0.4321)
+    assert line == "model_params.diffusion.dist.sigma_data: 0.4321"
+    got = json.loads(path.read_text()) if kind == "json" else yaml.safe_load(path.read_text())
+    assert got.pop("model_params") == {"diffusion": {"dist": {"sigma_data": 0.4321}}}
+    assert got == cfg
+    assert config_from_path(str(path)).model_params.diffusion.dist.sigma_data == 0.4321
+    assert run.write_sigma_data(str(path), 0.5) == (
+        '"sigma_data": 0.5' if kind == "json" else "sigma_data: 0.5")
+
+
+def test_sigma_data_without_pyyaml_warns(tmp_path, monkeypatch, caplog):
+    """Where PyYAML cannot be imported (the card), a YAML copy without the
+    line is left as it is and the run's logger warns, naming the file; a
+    JSON copy is written all the same."""
+    path = tmp_path / "config.yml"
+    path.write_text("log_dir: logs\nbatch_size: 2\n")
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    with caplog.at_level("WARNING", logger="styletts2_tpu_torch"):
+        assert run.write_sigma_data(str(path), 0.25) is None
+    assert path.read_text() == "log_dir: logs\nbatch_size: 2\n"
+    assert any(str(path) in r.getMessage() and "PyYAML" in r.getMessage()
+               for r in caplog.records if r.levelname == "WARNING")
+    js = tmp_path / "config.json"
+    js.write_text(json.dumps({"log_dir": "logs"}))
+    assert run.write_sigma_data(str(js), 0.25) is not None
+    assert json.loads(js.read_text())["model_params"]["diffusion"]["dist"]["sigma_data"] == 0.25

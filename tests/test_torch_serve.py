@@ -133,7 +133,7 @@ def test_http_endpoints_with_fake_synth():
             assert f.getframerate() == 24000 and f.getnframes() > 0
         assert _post(port, {"voice": "v"})[0] == 400  # no text
         assert _post(port, {"text": "x", "voice": "nope"})[0] == 400
-        assert _post(port, {"text": "hello", "raw_text": True})[0] == 400  # no phonemizer
+        assert _post(port, {"text": "hello", "raw_text": True})[0] == 501  # no phonemizer
         assert _post(port, {"text": "x"}, path="/nope")[0] == 404
     finally:
         server.close()

@@ -87,8 +87,11 @@ def test_sigma_data_write_back_keeps_the_rest(tmp_path):
     js.write_text(json.dumps(dataclasses.asdict(Config()), indent=2))
     assert run.write_sigma_data(str(js), 0.5) == '"sigma_data": 0.5,'
     assert yaml.safe_load(js.read_text())["model_params"]["diffusion"]["dist"]["sigma_data"] == 0.5
+    # a copy without the line gets the keys (test_torch_repairs.py has the cases)
     (tmp_path / "none.yml").write_text("log_dir: x\n")
-    assert run.write_sigma_data(str(tmp_path / "none.yml"), 0.5) is None
+    assert run.write_sigma_data(str(tmp_path / "none.yml"), 0.5) is not None
+    assert yaml.safe_load((tmp_path / "none.yml").read_text()) == {
+        "log_dir": "x", "model_params": {"diffusion": {"dist": {"sigma_data": 0.5}}}}
 
 
 @pytest.mark.parametrize("stage,flag,epoch_file,pretrained,first,want", [

@@ -10,9 +10,9 @@ the first. For each request: warm-up
 calls at its shapes, then the median, min and max host latency of
 `--repeats` calls (each ends in a device sync: the waveform is copied to
 the host). Then one torch.profiler trace of the first request: kernel
-time by op, kernel launches, the device busy share (summed kernel time
-over the wall time of the stage spans; one stream, so kernels do not
-overlap) and each synthesis stage's host time, kernel time and launches. The profiler
+time by op, kernel launches, the device busy share
+(`observability.device_busy_ms` over the profiled call's wall) and each
+synthesis stage's host time, kernel time and launches. The profiler
 slows the host, so its wall time exceeds the warm latency. `--trace` keeps
 the Chrome trace. `--decoder-dtype bfloat16` runs the bf16 decoder;
 convolutions and matmuls are f32 otherwise (TF32 off, as the entry points
@@ -35,6 +35,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import BENCH_TEXT, REQUESTS, TARGET_AUDIO_SEC, _voice  # noqa: E402
 from styletts2_tpu_torch.config import Config, libritts_config  # noqa: E402
 from styletts2_tpu_torch.inference import Synthesizer  # noqa: E402
+from styletts2_tpu_torch.observability import device_busy_ms  # noqa: E402
 from styletts2_tpu_torch.utils import set_f32_compute  # noqa: E402
 
 STAGES = ("text", "style", "duration", "prosody", "decode")
@@ -88,12 +89,15 @@ def main():
         prof.export_chrome_trace(str(trace))
         breakdown = stage_breakdown(trace)
     print(json.dumps({"config": args.config, "decoder_dtype": args.decoder_dtype or "float32",
-                      "wall_ms": wall_us / 1e3, **breakdown, "device": smi}))
+                      "wall_ms": wall_us / 1e3, **breakdown,
+                      "device_busy_share": breakdown["device_busy_ms"] / (wall_us / 1e3),
+                      "device": smi}))
 
 
 def stage_breakdown(trace: Path, names=STAGES) -> dict:
     """Kernel time and launches under each span of `names`, from the Chrome
-    trace: a kernel belongs to the span that was open when it was launched."""
+    trace: a kernel belongs to the span that was open when it was launched;
+    and the card's busy ms (`device_busy_ms`)."""
     ev = json.loads(trace.read_text())["traceEvents"]
     spans = [e for e in ev if e.get("cat") == "user_annotation" and e["name"] in names]
     launched = {e["args"]["correlation"]: e["ts"] for e in ev
@@ -109,12 +113,9 @@ def stage_breakdown(trace: Path, names=STAGES) -> dict:
             stages[owner]["launches"] += 1
         by_name[k["name"][:48]] = by_name.get(k["name"][:48], 0.0) + k["dur"] / 1e3
     kernel_ms = sum(k["dur"] for k in kernels) / 1e3
-    first = min(s["ts"] for s in spans)
-    last = max(s["ts"] + s["dur"] for s in spans)
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
     return {"kernel_ms": kernel_ms, "kernel_launches": len(kernels),
-            "device_busy_share": kernel_ms / ((last - first) / 1e3), "stages": stages,
-            "top_kernels_ms": top}
+            "device_busy_ms": device_busy_ms(ev), "stages": stages, "top_kernels_ms": top}
 
 
 if __name__ == "__main__":

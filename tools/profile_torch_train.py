@@ -11,8 +11,8 @@ joint, where the SLM-adversarial pass runs): `--steps` steps timed on the
 host clock (each ends in a host sync: the metrics are copied to the host)
 and their peak memory, then one torch.profiler trace of a step (in the
 joint phase, one that also steps the WavLM discriminator): kernel time by
-op, kernel launches, the device busy share (summed kernel time over the
-step's wall; one stream, so kernels do not overlap) and the host time,
+op, kernel launches, the device busy share
+(`observability.device_busy_ms` over the step's wall) and the host time,
 kernel time and launches of the step's parts (the trainer's profiler
 ranges). The profiler slows the host, so its wall exceeds the timed
 steps'. `--trace-dir` keeps the Chrome traces. `--mixed-precision bf16`
@@ -96,7 +96,7 @@ def main():
                               "peak_memory_gib": peak / 2 ** 30, "profiled_wall_ms": wall_ms,
                               "kernel_ms": parts["kernel_ms"],
                               "kernel_launches": parts["kernel_launches"],
-                              "device_busy_share": parts["kernel_ms"] / wall_ms,
+                              "device_busy_share": parts["device_busy_ms"] / wall_ms,
                               "parts": parts["stages"], "top_kernels_ms": parts["top_kernels_ms"],
                               "device": smi}))
 
