@@ -23,8 +23,9 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
   4. LJSpeech path: full-width Config() synthesis with seeded random weights
      answers 3 requests; each waveform is finite, sum(durations) * 600 long,
      and its decode launched the kernel 48 times
-  5. LJSpeech reference: a short request on the card agrees with the same
-     weights on the CPU (plain version), random draws and the chaotic source
+  5. LJSpeech reference: a short request on the card (its graphs captured
+     anew) agrees with the same weights on the CPU (plain version), the
+     card's draws fed to the CPU (`_SharedDraws`) and the chaotic source
      phase zeroed
   6. LibriTTS path: full-width libritts_config() (multispeaker, HiFi-GAN)
      with seeded random weights; compute_style of a seeded ~3 s voice on the
@@ -37,8 +38,8 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      lengths with 24 kHz WAVs in at least one fused batch, 96 launches per
      decode call; the burst's wall time and aggregate RTF
   8. LibriTTS references: a request and an inference_batch of 3 texts on the
-     card agree with the CPU, random draws from the host, the harmonic sines
-     zeroed and the Generator's head kept out of tanh's saturation
+     card agree with the CPU, the card's draws fed to the CPU, the harmonic
+     sines zeroed and the Generator's head kept out of tanh's saturation
   9. backward kernel: the fused op's backward kernel (K2) against its plain
      version (`adain_snake_bwd_ref`) and against autograd through
      `adain_snake_ref`, at the training shapes (batch 16 and the SLM pass's
@@ -121,7 +122,9 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      stage, 2 steps each before diffusion, with it and joint, checked as
      phase 12's (96 K1 per HiFi-GAN decoder run, 192 per differentiated
      one); a reduced-width multispeaker HiFi-GAN joint step card vs CPU as
-     phase 14's
+     phase 14's; the port's BiLSTM on the card against f64 within 2e-6
+     (`lstm_precision_check`: cuDNN's unpacked path, which this step's
+     F0Ntrain ran, rounds below f32 at its narrow width)
  20. data-parallel (`ddp_wavlm_phase`): `python -m torch.distributed.run
      --standalone --nproc_per_node 1` of `train.run first --max_steps 2`
      (through this script's --train-child, which counts the launches) on
@@ -135,7 +138,7 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      to the module's; phase 20's runs load it ("loaded WavLM")
  22. fidelity (`fidelity_phase`): `styletts2_tpu_torch.fidelity.run` at full
      width, Config() (iSTFTNet, 250 pre-TMA steps at batch 16) and
-     libritts_config() (HiFi-GAN, 60 at batch 8) of 5 s pseudo-speech, f32:
+     libritts_config() (HiFi-GAN, 30 at batch 8) of 5 s pseudo-speech, f32:
      48 / 96 K1 and K2 per step, 0 plain-version calls, the mel loss falling
      (iSTFTNet; HiFi-GAN's printed), the bf16-vs-f32 decoder MCD at random
      init and trained (iSTFTNet held <= 2.5 dB, HiFi-GAN printed)
@@ -148,7 +151,7 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
  24. benches (`bench_phase`): `bench.headline_once` in process on Config()
      (48 K1 per decode, 0 plain-version calls, RTF > 0); `python -m
      styletts2_tpu_torch.bench` with STYLETTS2_BENCH_PROCS=2 (exit 0, its
-     JSON line, the fused extras); `bench_train` at full width, 2 timed steps, stage 1 (TMA)
+     JSON line, the fused extras); `bench_train` at full width, 1 timed step, stage 1 (TMA)
      in f32 and stage 2 (joint) in bf16: each step's K1/K2 as its stage's,
      finite metrics, a non-null MFU against the H100 peak
  25. notebooks (`notebook_phase`): the three `examples/torch/` notebooks at
@@ -162,16 +165,32 @@ Phases, one line each; any failure raises, so the exit code is non-zero:
      another seed's differ, the profiler counts K1 48 / 96 times in one
      replay, as many as the replay adds to the count, 0 plain-version
      calls; capture time, the graph's pool, p50 / p95, RTF, host launches
-     and the device's busy share, beside the staged path's in the same
-     process; every shape K1 runs at in the graphs is one of phase 3's.
+     and the device's busy share (the staged path's: phase 27); every shape
+     K1 runs at in the graphs is one of phase 3's.
      A second graph (10 steps) captured into the first's pool, both replays
      unchanged after it. One f32 replay per config against the same
      program on the CPU, same weights, inputs and draws: waveform within
      1e-3. `Synthesizer(phase_a="fused")` against the staged path:
      durations equal, waveform within 1e-5
+ 27. staged and batched graphs (`staged_graphs_phase`): the JAX
+     Synthesizer's chain of programs, one CUDA graph per program and key
+     (text, style, duration or phase A; prosody, decode), for Config() and
+     libritts_config() with the f32 and the bf16 decoder: `synthesize`
+     staged and with the fused phase A, `inference_batch` at B = 1 and at
+     B = 8 of mixed lengths, each chain of replays against the same programs
+     run eagerly on the card (f32 bit-equal, one bf16 rounding with the
+     bf16 decoder), same-seed calls bit-equal and another seed's different,
+     each call one decode replay of 48 / 96 K1 (recorded, counted and seen
+     by the profiler), 0 plain-version calls; every chain unchanged after a
+     request of another text and frame bucket; every shape K1 ran at one of
+     phase 3's; capture s per key, the graph count and pool, p50 / p95, RTF,
+     host launches and the device's busy ms beside the eager chain's
 Phase 3 and 9 also check and time K1 and K2 at LibriTTS stage 2's HiFi-GAN
 training shapes (f32); phase 3 also at `inference_fused`'s budget-600
-decoder shapes, both dtypes. After each phase (or pair) a "[n done]" line gives the
+decoder shapes, both dtypes, and checks it untimed at phase 27's
+(GRAPH_CASES). Phases 4-8, 15, 17, 24 and 25 synthesize through the
+graphs; `_Counts` counts a decode replay as a decoder run and its recorded
+K1 launches by dtype (`GRAPHS`). After each phase (or pair) a "[n done]" line gives the
 smoke's wall so far. Every number line carries the card's name and power limit. Then a JSON line
 of the kernels (f32 and bf16 times) and, last, {"ok": true, "device": {...}}.
 It needs a CUDA device and the repository beside it; without either it
@@ -276,6 +295,15 @@ SMALL = {"max_len": 80, "model_params": {  # the reduced width of phase 11
 GRAD_TOL = 3e-2  # L2 of the gradient difference over its norm, per module
 MCD_BOUND = 2.5  # dB, bf16 against f32 compute (the JAX package's tests/test_bf16.py)
 STEP_TOL = 0.15  # a bf16 step's losses against f32's (tests/test_mixed_precision.py)
+# phase 27's graphs: the staged and batched paths at the pinned utterance's
+# frame bucket (F = 400) at B = 1 and 8 and at SHORT_TEXT's (F = 100), the
+# iSTFTNet stages (20 F, 120 F + 1) and HiFi-GAN's (20, 100, 300, 600 F),
+# both dtypes; held against the plain version in phase 3, not timed
+GRAPH_CASES = [((B, C, T), dt) for dt in ("float32", "bfloat16")
+               for B, C, T in sorted({(B, C, T) for B, F in ((1, 400), (8, 400), (1, 100))
+                                      for C, T in ((256, 20 * F), (128, 120 * F + 1),
+                                                   (128, 100 * F), (64, 300 * F), (32, 600 * F))})
+               if ((B, C, T), dt) not in KERNEL_CASES]
 STAGE2_BATCHES = (16, 12, 8)  # phase 12 runs at the first that fits the card
 REPO = Path(__file__).resolve().parent
 
@@ -417,6 +445,77 @@ def _host_draws(fn, *args, zero_sines=False, noise_source=False, **kwargs):
         pdi.SineGen.forward = sines
 
 
+class _SharedDraws:
+    """While entered: a request on the card's CUDA graphs and then the same
+    request on the CPU take the same draws, and the NSF source's chaotic
+    parts are zeroed in both (the iSTFTNet source's STFT phase, as
+    `_host_draws` zeroes it; HiFi-GAN's harmonic sines, `_zero_sines`, or
+    with `noise_source` the sines alone, `_noise_source`). On the card the
+    draws a graph's capture records are kept (each draw's tensor stays
+    alive in the graph's pool, so after the replay it holds what the replay
+    drew), and with `outside` so are the draws made outside the programs
+    (the starting noise); a graph's warm-up draws are not. After `feed()` every draw
+    takes the next kept one, moved to the CPU. The Synthesizers must
+    capture their graphs inside (the source's parts are captured as they
+    are at capture): clear `syn.graphs` first. `left()` counts the kept
+    draws not taken."""
+
+    def __init__(self, hifigan, noise_source=False, outside=True):
+        self.hifigan, self.noise_source, self.outside = hifigan, noise_source, outside
+        self.kept, self._feed = [], None
+
+    def __enter__(self):
+        self._zeroed = _chaos_zeroed(self.hifigan, self.noise_source)
+        self._zeroed.__enter__()
+        self._saved = torch.rand, torch.randn
+
+        def shared(f):
+            def draw(size, *, generator=None, device=None, dtype=None):
+                if self._feed is not None:  # the CPU run: the card's draws, in order
+                    t = next(self._feed)
+                    if tuple(t.shape) != tuple(size):
+                        raise RuntimeError(f"the CPU draws {tuple(size)}, the card drew "
+                                           f"{tuple(t.shape)}")
+                    return t.to("cpu", dtype or t.dtype)
+                out = f(size, generator=generator, device=device, dtype=dtype)
+                if torch.cuda.is_current_stream_capturing() or (
+                        self.outside and not GRAPHS.building):
+                    self.kept.append(out)
+                return out
+            return draw
+
+        torch.rand, torch.randn = shared(torch.rand), shared(torch.randn)
+        return self
+
+    def feed(self):
+        self._feed = iter(self.kept)
+
+    def left(self):
+        return sum(1 for _ in self._feed)
+
+    def __exit__(self, *exc):
+        torch.rand, torch.randn = self._saved
+        self._zeroed.__exit__(*exc)
+
+
+@contextlib.contextmanager
+def _chaos_zeroed(hifigan, noise_source=False):
+    """The NSF source's chaotic parts zeroed, as `_host_draws` zeroes them
+    (with `noise_source` HiFi-GAN's sines alone), the draws left as they
+    are: for two Synthesizers on the card whose graphs, captured inside,
+    draw the same from the same seed."""
+    import styletts2_tpu_torch.models.decoder_istft as pdi
+
+    magphase, sines = pdi.stft_magphase, pdi.SineGen.forward
+    pdi.stft_magphase = _zero_phase(magphase)
+    if hifigan:
+        pdi.SineGen.forward = _noise_source if noise_source else _zero_sines
+    try:
+        yield
+    finally:
+        pdi.stft_magphase, pdi.SineGen.forward = magphase, sines
+
+
 def reference_net(state_dict, seed=0):
     """The port's state_dict {"module.name": tensor} as the `net` of a
     reference StyleTTS 2 checkpoint, {module: state_dict}, in the layout the
@@ -493,22 +592,70 @@ class _Tally:
                 if k[0] != "plain" and v - before.get(k, 0)}
 
 
+class _GraphWatch:
+    """Installed once, before the first phase (`install`): K1's launches by
+    x's dtype over the whole smoke (`dtypes`), an eager launch when it is
+    made and a launch recorded into a CUDA graph (`inference._Graph`) at
+    each replay of the graph, which keeps its capture's (`k1_dtypes`);
+    `replays`, the replays of graphs that hold K1 (one decode each);
+    `building`, whether a graph is being built (its warm-up or capture)."""
+
+    def __init__(self):
+        self.dtypes, self.replays, self.building = collections.Counter(), 0, False
+
+    def install(self, op):
+        from styletts2_tpu_torch import inference
+
+        cls = inference._Graph
+        forward, init, call = op._forward_kernel, cls.__init__, cls.__call__
+        capture = []
+
+        def counted(x, *a, **k):
+            dtype = str(x.dtype).split(".")[-1]
+            inside = capture and torch.cuda.is_current_stream_capturing()  # a `_Graph`'s capture
+            (capture[-1] if inside else self.dtypes)[dtype] += 1
+            return forward(x, *a, **k)
+
+        def build(graph, *a, **k):
+            capture.append(collections.Counter())
+            self.building = True
+            try:
+                init(graph, *a, **k)
+            finally:
+                self.building = False
+                graph.k1_dtypes = capture.pop()
+
+        def replay(graph, *a, **k):
+            out = call(graph, *a, **k)
+            self.dtypes.update(graph.k1_dtypes)
+            self.replays += bool(graph.k1)
+            return out
+
+        op._forward_kernel, cls.__init__, cls.__call__ = counted, build, replay
+
+
+GRAPHS = _GraphWatch()
+
+
 class _Counts:
     """Kernel launches (and their dtypes), plain-version calls and decoder
-    calls of one phase: `with _Counts(op, decoder) as c:` sets them to 0 on
-    entry and reads them on exit."""
+    runs of one phase: `with _Counts(op, decoder) as c:` sets them to 0 on
+    entry and reads them on exit. A decoder run is an eager call of the
+    decoder (a graph's warm-up among them; `eager`) or a replay of a graph
+    that holds K1 (`replays`); a graph's capture runs none."""
 
     def __init__(self, op, decoder):
         self.op, self.decoder = op, decoder
 
     def __enter__(self):
-        self.decodes = 0
+        self.eager = 0
 
         def decode(module, args):
-            self.decodes += 1
+            self.eager += not torch.cuda.is_current_stream_capturing()
 
         self._hook = self.decoder.register_forward_pre_hook(decode)
         self._tally = _Tally(self.op).__enter__()
+        self._replays, self._dtypes = GRAPHS.replays, collections.Counter(GRAPHS.dtypes)
         self.op.adain_snake.launches = 0
         return self
 
@@ -516,7 +663,9 @@ class _Counts:
         self.launches = self.op.adain_snake.launches
         self._tally.__exit__(*exc)
         self.plain_calls = self._tally.plain
-        self.dtypes = {dt: n for (key, dt), n in self._tally.n.items() if key == "K1"}
+        self.replays = GRAPHS.replays - self._replays
+        self.decodes = self.eager + self.replays
+        self.dtypes = dict(GRAPHS.dtypes - self._dtypes)
         self._hook.remove()
 
     def check(self, per_decode, what, dtype="float32"):
@@ -756,7 +905,8 @@ def kernel_phase(op, dev, smi):
 
     g = torch.Generator(dev).manual_seed(0)
     max_err, timings = {"float32": 0.0, "bfloat16": 0.0}, {}
-    for shape, dt, k in [(shape, dt, None) for shape, dt in KERNEL_CASES] + EDGE_CASES:
+    cases = [(shape, dt, None) for shape, dt in KERNEL_CASES + GRAPH_CASES] + EDGE_CASES
+    for shape, dt, k in cases:
         dtype = getattr(torch, dt)
         args = kernel_inputs(g, dev, shape, dtype)
         with torch.inference_mode():
@@ -773,7 +923,7 @@ def kernel_phase(op, dev, smi):
                 f"(tol {TOL[dt]:g}), repeat bit-equal")
         max_err[dt] = max(max_err[dt], err)
         if (shape, dt) in KERNEL_CASES and shape[2] >= 2400:  # the main paths' shapes
-            iters = 100 if args[0].numel() < 10 ** 7 else 40
+            iters = 30 if args[0].numel() < 10 ** 7 else 12
             nbytes = args[0].numel() * args[0].element_size()
             bound = bound_ms(shape, dt)
             with torch.inference_mode():
@@ -1301,7 +1451,8 @@ def serve_burst(op, serve, build_dir, smi, tag, speed, extra=(), dtype="float32"
     configs/config_libritts.yml --voices DIR` and `extra`, its defaults
     otherwise: no PyYAML, seed-0 weights, window 15 ms, max batch 8) with
     the seeded voice as a 22.05 kHz WAV, served on a thread instead of the
-    main one: a warm-up burst at the batched shapes, then SERVE_TEXTS as
+    main one: warm-up bursts until one captures no CUDA graph (at most 4),
+    then SERVE_TEXTS as
     concurrent /tts requests, each a 24 kHz WAV, in at least one fused
     batch, 96 launches per decode call, all with an x of `dtype`. Returns
     (the burst's _Counts, its wall s)."""
@@ -1332,7 +1483,13 @@ def serve_burst(op, serve, build_dir, smi, tag, speed, extra=(), dtype="float32"
                 th.join(300)
             return results, time.perf_counter() - t0
 
-        burst()  # warm-up at the batched shapes
+        graphs = server.syn.graphs
+        for warmups in range(1, 5):  # warm-up bursts until one captures no graph
+            n = len(graphs)
+            burst()
+            if len(graphs) == n:
+                break
+        captured = len(graphs)
         stats0 = dict(server.batcher.stats)
         with _Counts(op, server.syn.models["decoder"]) as sv:
             results, wall = burst()
@@ -1355,8 +1512,10 @@ def serve_burst(op, serve, build_dir, smi, tag, speed, extra=(), dtype="float32"
         print(f"[{tag}] {len(results)} concurrent requests, {audio:.3f} s audio in {wall * 1e3:.1f} "
               f"ms wall (window {args.window_ms} ms): aggregate RTF {audio / wall:.2f}x; {batches} "
               f"batches ({fused} requests fused), {sv.decodes} decode calls, {sv.launches} kernel "
-              f"launches ({CALLS_PER_HIFIGAN_DECODE} per decode, x {dtype}), 0 plain-version calls "
-              f"[{smi}]", flush=True)
+              f"launches ({CALLS_PER_HIFIGAN_DECODE} per decode, x {dtype}), 0 plain-version "
+              f"calls; "
+              f"{warmups} warm-up bursts; CUDA graphs {captured} before it, {len(graphs)} after "
+              f"{sorted(collections.Counter(k[:2] for k in graphs).items())} [{smi}]", flush=True)
     finally:
         server.close()
         del server
@@ -1763,15 +1922,16 @@ def reference_phase(op, serve, dev, build_dir, smi):
                       f"{out.strip().splitlines()[-1]}; {len(wav)} samples at 24 kHz, as this "
                       f"process's [{smi}]", flush=True)
 
-            # agreement with the port's layout: host draws, the chaotic source parts zeroed
+            # agreement with the port's layout: the same seed, the chaotic source parts zeroed
             mine = Synthesizer(make(), state_dict=sd, device=dev)
             if syn.hifigan:  # phase 8's head gain: out of tanh's saturation
                 for m in (syn, mine):
                     m.models["decoder"].generator.conv_post.weight_g.mul_(0.01)
             noise = np.random.default_rng(1).standard_normal(
                 (1, 1, 2 * syn.style_dim)).astype(np.float32)
-            a = _host_draws(syn.synthesize, REQUESTS[1][0], noise=noise, speed=speed)
-            b = _host_draws(mine.synthesize, REQUESTS[1][0], noise=noise, speed=speed)
+            syn.graphs.clear()  # both capture with the source's chaotic parts zeroed
+            with _chaos_zeroed(syn.hifigan):
+                a, b = (m.synthesize(REQUESTS[1][0], noise=noise, speed=speed) for m in (syn, mine))
             s_err, w_err = _rel(a.s_pred, b.s_pred), _rel(a.wav, b.wav)
             print(f"[{tag}] against the port-layout weights: durations "
                   f"{'equal' if np.array_equal(a.pred_dur, b.pred_dur) else 'DIFFER'}, style rel "
@@ -2045,7 +2205,32 @@ def libritts_stage2_phase(op, build_dir, smi, dev):
               f"0 plain-version calls [{smi}]", flush=True)
     torch.cuda.empty_cache()
     stage2_reference_phase(dev, "19 libritts reference", libritts=True)
+    lstm_precision_check(dev, smi)
     return k1, k2
+
+
+LSTM_TOL = 2e-6  # a BiLSTM's output and gradients against f64, relative L2 (f32 on the CPU: <6e-7)
+
+
+def lstm_precision_check(dev, smi):
+    """Phase 19's repaired module: the port's BiLSTM on the card, train
+    mode, at the prosody predictor's full width (batch 16, 200 frames) and
+    at phase 19's narrow width, its output, input gradient and weight
+    gradients within LSTM_TOL of an f64 reference on the CPU
+    (tests/test_torch_cuda.py::bilstm_errors). cuDNN's unpacked path reads
+    5.8e-6 at the narrow width (tools/lstm_precision_torch.py), where
+    tools/conditioning_torch.py --bisect found F0Ntrain's shared LSTM
+    departing from the CPU beyond its conditioning."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from test_torch_cuda import bilstm_errors
+
+    for shape in ((16, 200, 640, 256), (2, 40, 96, 32)):
+        errs = bilstm_errors(shape, dev)
+        print(f"[19 lstm] BiLSTM (B, T, C, H) {shape} on the card against f64: output "
+              f"{errs[0]:.2e}, input gradient {errs[1]:.2e}, weight gradients {errs[2]:.2e} "
+              f"(tol {LSTM_TOL:g}) [{smi}]", flush=True)
+        if max(errs) > LSTM_TOL:
+            raise RuntimeError(f"[19 lstm] BiLSTM {shape}: {errs} against f64")
 
 
 def train_child(argv):
@@ -2219,8 +2404,9 @@ def ddp_wavlm_phase(op, build_dir, smi, dev):
 # dB at batch 8 from step 150 on, and at batch 16 falls through the 2.5 dB
 # bound between steps 100 and 150, to 2.03-2.42 at 250 (2.2827 with the
 # tool's seeded, deterministic run; PERF.md §6); HiFi-GAN's mel loss
-# plateaus or rises as its tanh head clips, so more steps add nothing
-FIDELITY_RUNS = {"ljspeech": (250, 16), "libritts": (60, 8)}
+# plateaus or rises as its tanh head clips, so more steps add nothing (its
+# loss falls 47.8% in 60 steps, most of it in the first 25)
+FIDELITY_RUNS = {"ljspeech": (250, 16), "libritts": (30, 8)}
 TP_BATCH = 4  # phase 23: the unlaunched step and two ranks' steps fit one card together
 MEDIAN_GRID = 1e-4  # phase 23: TPRLS's median picked on values rounded to this
 
@@ -2229,7 +2415,7 @@ def fidelity_phase(op, smi):
     """Phase 22: trained-weights fidelity at full width through
     `styletts2_tpu_torch.fidelity.run`: Config() (iSTFTNet) and
     libritts_config() (HiFi-GAN), FIDELITY_RUNS' pre-TMA steps and batches
-    (250 at 16, 60 at 8) of 5 s pseudo-speech clips, f32, TF32 off. Every step
+    (250 at 16, 30 at 8) of 5 s pseudo-speech clips, f32, TF32 off. Every step
     launches 48 / 96 K1 and as many K2 (each counted around its
     `train_step`), 0 plain-version calls; the losses are finite and the
     mean of the last 10 mel losses is below the first 10's; the
@@ -2529,9 +2715,10 @@ def bench_phase(op, smi):
       calibration, a warm-up and 20 timed calls, each decode 48 f32 K1
       launches, 0 plain-version calls, RTF > 0;
     - `python -m styletts2_tpu_torch.bench` with STYLETTS2_BENCH_PROCS=2 as
-      a subprocess (its worker a third process): exit 0, one JSON last line
-      with the bench's keys, the batched and bf16 extras, a positive value;
-    - `bench_train.run` at full width, 2 timed steps: stage 1 (TMA) in f32
+      a subprocess (its `--headline-worker` a third process): exit 0, one
+      JSON last line with the bench's keys, the batched, bf16 and fused
+      extras, a positive value;
+    - `bench_train.run` at full width, 1 timed step: stage 1 (TMA) in f32
       and stage 2 (joint) with `--mp bf16`, each step's K1 / K2 as its
       stage's (`_bench_train_run`), finite metrics, a non-null MFU.
     Returns (K1, K2) of the in-process runs."""
@@ -2549,7 +2736,7 @@ def bench_phase(op, smi):
     print(f"[24 bench] headline_once in process: {json.dumps(stats)}, speed {speed:.4f}; "
           f"{c.launches} K1 launches in {c.decodes} decodes, 0 plain-version calls [{smi}]",
           flush=True)
-    if not stats["rtf"] > 0 or c.decodes != stats["n_runs"] + 2:
+    if not stats["rtf"] > 0 or c.replays != stats["n_runs"] + 2:  # one replay a call
         raise RuntimeError(f"[24 bench] headline: {stats}, {c.decodes} decodes")
 
     t0 = time.perf_counter()
@@ -2568,10 +2755,10 @@ def bench_phase(op, smi):
             and extra.get("fused_rtf", 0) > 0 and extra.get("fused_latency_p50_ms", 0) > 0):
         raise RuntimeError(f"[24 bench] bench line {line}")
 
-    _, k1a, k2a = _bench_train_run(op, smi, ["--full-size", "--stage", "first", "--steps", "2"],
+    _, k1a, k2a = _bench_train_run(op, smi, ["--full-size", "--stage", "first", "--steps", "1"],
                                    "24 bench")
     _, k1b, k2b = _bench_train_run(op, smi, ["--full-size", "--stage", "second", "--mp", "bf16",
-                                             "--steps", "2"], "24 bench")
+                                             "--steps", "1"], "24 bench")
     print(f"[24 bench] phase 24 in {time.perf_counter() - start:.1f} s wall [{smi}]", flush=True)
     return c.launches + k1a + k1b, k2a + k2b
 
@@ -2596,8 +2783,8 @@ def notebook_phase(op, smi):
         nb = json.loads((REPO / "examples" / "torch" / name).read_text())
         runs = [0]
 
-        def count(module, args):
-            runs[0] += isinstance(module, decoders)
+        def count(module, args):  # eager runs; a graph's capture runs none
+            runs[0] += isinstance(module, decoders) and not torch.cuda.is_current_stream_capturing()
 
         t0 = time.perf_counter()
         hook = torch.nn.modules.module.register_module_forward_pre_hook(count)
@@ -2606,11 +2793,12 @@ def notebook_phase(op, smi):
             with tempfile.TemporaryDirectory() as tmp, _Tally(op) as tally:
                 os.chdir(tmp)
                 _zero_counts(op)
-                ns = {}
+                replays, ns = GRAPHS.replays, {}
                 for i, cell in enumerate(nb["cells"]):
                     if cell["cell_type"] == "code":
                         exec(compile("".join(cell["source"]), f"{name}:cell{i}", "exec"), ns)
                 k1, k2 = op.adain_snake.launches, op.adain_snake.bwd_launches
+                runs[0] += GRAPHS.replays - replays  # decode graphs' replays
                 os.chdir(cwd)
         finally:
             os.chdir(cwd)
@@ -2638,7 +2826,7 @@ def notebook_phase(op, smi):
 
 
 FUSED_BUDGET = 600  # frames: the JAX inference_fused's default, 15 s of audio
-FUSED_RUNS = 20  # warm calls timed per path
+FUSED_RUNS = 10  # warm calls timed per path
 BF16_ROUNDING = 2.0 ** -8  # one bf16 rounding, relative to the peak
 
 
@@ -2671,12 +2859,12 @@ def _profiled(fn):
             "k1": sum("adain_snake_kernel<" in e["name"] for e in kernels)}
 
 
-def _timed_ms(fn):
-    """Host ms of FUSED_RUNS warm calls of fn, each ending in a device sync
+def _timed_ms(fn, runs=FUSED_RUNS):
+    """Host ms of `runs` warm calls of fn, each ending in a device sync
     (the waveform comes back to the host)."""
     from styletts2_tpu_torch.bench import _timed
 
-    return 1e3 * _timed(fn, FUSED_RUNS)
+    return 1e3 * _timed(fn, runs)
 
 
 class _FusedCase:
@@ -2684,10 +2872,10 @@ class _FusedCase:
     utterance (budget 600) captured at its first call and held against an
     eager run of the same program (`Synthesizer._fused`) on the card,
     same-seed replays bit-equal and another seed's different, each replay
-    adding the K1 its capture recorded; warm timings of it and of the
-    staged path (`time`), and later one profiled call of each (`profile`:
-    torch.profiler leaves the host slower for the rest of the process, so
-    every path is timed before any is profiled). Every shape the graph gives
+    adding the K1 its capture recorded; warm timings of it (`time`; the
+    staged path's graphs are timed in phase 27), and later one profiled call
+    (`profile`: torch.profiler leaves the host slower for the rest of the
+    process, so every path is timed before any is profiled). Every shape the graph gives
     K1 must be one of phase 3's KERNEL_CASES, where K1 was held against its
     plain version. `k1` sums its launches."""
 
@@ -2698,11 +2886,10 @@ class _FusedCase:
         self.op, self.syn, self.tag, self.smi, self.per_decode = op, syn, tag, smi, per_decode
         self.kw = dict(frame_budget=FUSED_BUDGET, ref_s=ref_s, speed=speed)
         self.fused = lambda seed=0: syn.inference_fused(BENCH_TEXT, seed=seed, **self.kw)
-        self.staged = lambda: syn.synthesize(BENCH_TEXT, ref_s=ref_s, seed=0, speed=speed).wav
         with _Tally(op) as tally:
             before = op.adain_snake.launches
             wav = self.fused()
-            (key, self.graph), = syn.graphs.items()
+            key, self.graph = next((k, g) for k, g in syn.graphs.items() if k[0] == "fused")
             again, other = self.fused(), self.fused(seed=1)
             inputs = syn._inputs(encode_text(BENCH_TEXT), ref_s, None,
                                  _mix(0.3, 0.7, speed=speed), 0)
@@ -2739,11 +2926,8 @@ class _FusedCase:
     def time(self):
         before = self.op.adain_snake.launches
         self.lat = _timed_ms(self.fused)
-        for _ in range(2):
-            self.staged_wav = self.staged()
-        self.staged_lat = _timed_ms(self.staged)
         self.k1 += self.op.adain_snake.launches - before
-        if self.k1 != self.per_decode * (5 + 2 + 2 * FUSED_RUNS):
+        if self.k1 != self.per_decode * (5 + FUSED_RUNS):
             raise RuntimeError(f"[{self.tag}] K1 {self.k1} after the timed calls")
 
     def shared_pool(self):
@@ -2753,7 +2937,7 @@ class _FusedCase:
         each graph's replay bit-equal to its earlier one."""
         before = self.op.adain_snake.launches
         wav10 = self.syn.inference_fused(BENCH_TEXT, diffusion_steps=10, **self.kw)
-        first, second = self.syn.graphs.values()
+        first, second = (g for k, g in self.syn.graphs.items() if k[0] == "fused")
         same = (np.array_equal(self.fused(), self.wav) and np.array_equal(
             self.syn.inference_fused(BENCH_TEXT, diffusion_steps=10, **self.kw), wav10))
         counted = self.op.adain_snake.launches - before
@@ -2776,10 +2960,6 @@ class _FusedCase:
                                f"which counted {counted}, its capture recorded {self.graph.k1}")
         _path_line(self.tag, f"inference_fused (budget {FUSED_BUDGET})", self.wav, self.lat, prof,
                    self.smi, f", K1 {prof['k1']} in the replay (profiler)")
-        before = self.op.adain_snake.launches
-        prof = _profiled(self.staged)
-        self.k1 += self.op.adain_snake.launches - before
-        _path_line(self.tag, "staged inference", self.staged_wav, self.staged_lat, prof, self.smi)
 
 
 def _path_line(tag, what, wav, lat, prof, smi, extra=""):
@@ -2805,7 +2985,6 @@ def _replay_against_cpu(op, cfg, tag, smi, speed, ref_s=None, text=BENCH_TEXT):
     (`_noise_source`, as phase 23: a constant source leaves the Generator's
     noise-branch AdaINs normalising their rows' rounding); HiFi-GAN's head
     gets phase 8's gain. Returns K1's launches on the card."""
-    import styletts2_tpu_torch.models.decoder_istft as pdi
     from styletts2_tpu_torch.inference import Synthesizer, _mix, _pack
     from styletts2_tpu_torch.text import encode_text
 
@@ -2813,39 +2992,16 @@ def _replay_against_cpu(op, cfg, tag, smi, speed, ref_s=None, text=BENCH_TEXT):
     if card.hifigan:
         for m in (card, host):
             m.models["decoder"].generator.conv_post.weight_g.mul_(0.01)
-    kept, feed = [], []
-    rand, randn, magphase, sines = torch.rand, torch.randn, pdi.stft_magphase, pdi.SineGen.forward
-
-    def shared(f):
-        def draw(size, *, generator=None, device=None, dtype=None):
-            if feed:  # the CPU run: the replay's draws, in order
-                t = next(feed[0])
-                if tuple(t.shape) != tuple(size):
-                    raise RuntimeError(f"[{tag}] the CPU draws {tuple(size)}, the card drew "
-                                       f"{tuple(t.shape)}")
-                return t.to("cpu", dtype or t.dtype)
-            out = f(size, generator=generator, device=device, dtype=dtype)
-            if torch.cuda.is_current_stream_capturing():
-                kept.append(out)
-            return out
-        return draw
-
-    torch.rand, torch.randn, pdi.stft_magphase = shared(rand), shared(randn), _zero_phase(magphase)
-    pdi.SineGen.forward = _noise_source if card.hifigan else sines
-    try:
+    with _SharedDraws(card.hifigan, noise_source=True, outside=False) as draws:
         before = op.adain_snake.launches
         wav = card.inference_fused(text, frame_budget=FUSED_BUDGET, ref_s=ref_s, speed=speed)
         launches = op.adain_snake.launches - before
         inputs = card._inputs(encode_text(text), ref_s, None, _mix(0.3, 0.7, speed=speed), 0)
-        feed.append(iter(kept))
+        draws.feed()
         with torch.inference_mode():
-            want = _pack(*host._fused(**{k: v.cpu() for k, v in inputs.items()},
-                                      frame_budget=FUSED_BUDGET, steps=5, scale=1.0,
-                                      generator=torch.Generator().manual_seed(0))).numpy()
-        left = sum(1 for _ in feed[0])
-    finally:
-        torch.rand, torch.randn, pdi.stft_magphase = rand, randn, magphase
-        pdi.SineGen.forward = sines
+            want = _pack(*host._fused(torch.Generator(), **{k: v.cpu() for k, v in inputs.items()},
+                                      frame_budget=FUSED_BUDGET, steps=5, scale=1.0)).numpy()
+        left, kept = draws.left(), draws.kept
     want = want[: int(want[-1]) * SAMPLES_PER_FRAME]
     err = _rel(wav, want) if wav.shape == want.shape else float("inf")
     print(f"[{tag}] a replay against the CPU's eager run of the program (plain K1), the same "
@@ -2865,10 +3021,13 @@ def fused_phase(op, smi):
     `Synthesizer(Config(), phase_a="fused")` against the staged path
     (durations equal, waveform within 1e-5 of its peak; its phase-A graph
     launches no K1, each decode 48). The utterance is pinned to ~7.85 s as
-    the bench pins it. Every path is timed, then each is profiled once. A
+    the bench pins it; `phase_a="fused"` is the LJSpeech f32 Synthesizer's
+    `phase_a_mode` set for the call. Every path is timed, then each is profiled once. A
     second graph shares the LJSpeech f32 graph's pool (`shared_pool`), and
     one f32 replay per config is held against the CPU
-    (`_replay_against_cpu`). Returns the phase's K1 launches."""
+    (`_replay_against_cpu`). Returns the phase's K1 launches and its four
+    Synthesizers (name, Synthesizer, K1 per decode, speed, style), which
+    phase 27 takes on."""
     from styletts2_tpu_torch.config import Config, libritts_config
     from styletts2_tpu_torch.inference import Synthesizer
 
@@ -2892,16 +3051,19 @@ def fused_phase(op, smi):
         case.time()
     cases[0].shared_pool()
 
-    staged = Synthesizer(Config(), seed=0, device="cuda")
-    want = staged.synthesize(BENCH_TEXT, seed=0, speed=lj_speed)
-    fa = Synthesizer(Config(), seed=0, device="cuda", phase_a="fused")
+    fa = cases[0].syn  # LJSpeech f32: its staged chain, then phase A as one program
+    want = fa.synthesize(BENCH_TEXT, seed=0, speed=lj_speed)
 
     def call():
-        return fa.synthesize(BENCH_TEXT, seed=0, speed=lj_speed)
+        fa.phase_a_mode = "fused"
+        try:
+            return fa.synthesize(BENCH_TEXT, seed=0, speed=lj_speed)
+        finally:
+            fa.phase_a_mode = "staged"
 
     with _Counts(op, fa.models["decoder"]) as c:
         got, got2 = call(), call()
-        (key, graph), = fa.graphs.items()
+        key, graph = next((k, g) for k, g in fa.graphs.items() if k[0] == "phase_a")
         lat = _timed_ms(call)
     c.check(CALLS_PER_DECODE, "26 fused phase A")
     err = _rel(got.wav, want.wav) if got.wav.shape == want.wav.shape else float("inf")
@@ -2920,14 +3082,175 @@ def fused_phase(op, smi):
     prof = _profiled(call)
     _path_line("26 fused phase A", "phase_a='fused' inference", got.wav, lat, prof, smi)
     k1 = sum(case.k1 for case in cases) + c.launches + op.adain_snake.launches - before
-    del cases, staged, fa
-    torch.cuda.empty_cache()
+    syns = [(case.tag.split()[2], case.syn, case.per_decode, case.kw["speed"], case.kw["ref_s"])
+            for case in cases]
+    del cases, fa
     k1 += _replay_against_cpu(op, Config, "26 fused LJSpeech vs CPU", smi, lj_speed)
     k1 += _replay_against_cpu(op, libritts_config, "26 fused LibriTTS vs CPU", smi, ms_speed,
                               ms_ref_s)
     torch.cuda.empty_cache()
     print(f"[26 fused] phase 26 in {time.perf_counter() - start:.1f} s wall [{smi}]", flush=True)
-    return k1
+    return k1, syns
+
+
+STAGED_RUNS = 10  # warm calls timed per path in phase 27 (the eager chain: half, at least 3)
+SHORT_TEXT = "hˈɛloʊ ðɛɹ."  # phase 27's other key: another text bucket and frame bucket
+
+
+class _ChainCase:
+    """Phase 27 on one Synthesizer and one path (`call(seed)`: staged
+    `synthesize`, `synthesize` with the fused phase A, `inference_batch` of
+    one text or of SERVE_TEXTS): the chain of graph replays against the same
+    chain of programs run eagerly on the card (f32 bit-equal, the bf16
+    decoder within one bf16 rounding of the peak), same-seed calls
+    bit-equal, another seed's different, each call one decode replay of
+    per_decode K1; `time` times the graphs and, with `time_eager`, the
+    eager chain (`eager_chain`, tests/test_torch_cuda.py's) over half as
+    many calls, `profile` profiles them, `again` holds the replays to their
+    first output after other keys ran."""
+
+    def __init__(self, op, syn, tag, what, call, per_decode, smi, eager_chain, time_eager=True,
+                 runs=STAGED_RUNS, profiled=True):
+        self.op, self.syn, self.tag, self.what, self.call = op, syn, tag, what, call
+        self.eager_chain = eager_chain
+        self.per_decode, self.smi, self.time_eager = per_decode, smi, time_eager
+        self.runs, self.profiled = runs, profiled
+        keys = set(syn.graphs)
+        self.first = call(0)
+        self.keys = [k for k in syn.graphs if k not in keys]
+        before = op.adain_snake.launches
+        again, other = call(0), call(1)
+        self.k1 = op.adain_snake.launches - before
+        with eager_chain(syn):
+            eager = call(0)
+        tol = 0.0 if syn.decoder_dtype == torch.float32 else BF16_ROUNDING
+        errs = [_rel(g, e) if g.shape == e.shape else float("inf")
+                for g, e in zip(self.first, eager)]
+        decode = [syn.graphs[k] for k in syn.graphs if k[0] == "decode" and k[1] == len(self.first)]
+        print(f"[{tag}] {what}: {len(self.keys)} new graphs {[k[0] for k in self.keys]}, capture "
+              f"{', '.join(f'{syn.graphs[k].capture_s:.2f}' for k in self.keys)} s; replays vs the "
+              f"eager chain on the card max rel err {max(errs):.2e} (tol {tol:g}), same seed "
+              f"bit-equal {all(map(np.array_equal, self.first, again))}, seed 1 differs "
+              f"{not all(map(np.array_equal, self.first, other))}; K1 {self.k1} in 2 calls "
+              f"[{smi}]", flush=True)
+        if not (max(errs) <= tol and all(np.isfinite(w).all() for w in self.first)
+                and all(map(np.array_equal, self.first, again))
+                and not all(map(np.array_equal, self.first, other))):
+            raise RuntimeError(f"[{tag}] {what}: the replays and the eager chain disagree, or "
+                               f"same-seed calls differ, or seeds 0 and 1 agree")
+        if self.k1 != 2 * per_decode or not decode or any(g.k1 != per_decode for g in decode):
+            raise RuntimeError(f"[{tag}] {what}: K1 {self.k1} in 2 calls, decode graphs "
+                               f"{[g.k1 for g in decode]}, not {per_decode} each")
+
+    def again(self):
+        same = all(map(np.array_equal, self.call(0), self.first))
+        if not same:
+            raise RuntimeError(f"[{self.tag}] {self.what}: changed after other keys ran")
+        return same
+
+    def time(self):
+        self.lat = _timed_ms(lambda: self.call(0), self.runs)
+        if self.time_eager:
+            with self.eager_chain(self.syn):
+                self.call(0)
+                self.eager_lat = _timed_ms(lambda: self.call(0), max(self.runs // 2, 3))
+
+    def profile(self):
+        if not self.profiled:
+            audio = sum(len(w) for w in self.first) / 24000.0
+            p50 = np.percentile(self.lat, 50)
+            print(f"[{self.tag}] {self.what}, graphs: {audio:.3f} s audio, p50 {p50:.2f} ms, p95 "
+                  f"{np.percentile(self.lat, 95):.2f} ms, RTF {audio / (p50 / 1e3):.1f}x over "
+                  f"{len(self.lat)} warm calls (its graphs are phase A's, profiled above) "
+                  f"[{self.smi}]", flush=True)
+            return
+        before = self.op.adain_snake.launches
+        prof = _profiled(lambda: self.call(0))
+        counted = self.op.adain_snake.launches - before
+        if not prof["k1"] == counted == self.per_decode:
+            raise RuntimeError(f"[{self.tag}] {self.what}: the profiler saw {prof['k1']} K1 in one "
+                               f"call, which counted {counted}, not {self.per_decode}")
+        rows = [("graphs", self.lat, prof)]
+        if self.time_eager:
+            with self.eager_chain(self.syn):
+                rows.append(("eager chain", self.eager_lat, _profiled(lambda: self.call(0))))
+        audio = sum(len(w) for w in self.first) / 24000.0
+        for name, lat, pr in rows:
+            p50 = np.percentile(lat, 50)
+            print(f"[{self.tag}] {self.what}, {name}: {audio:.3f} s audio, p50 {p50:.2f} ms, p95 "
+                  f"{np.percentile(lat, 95):.2f} ms, RTF {audio / (p50 / 1e3):.1f}x over "
+                  f"{len(lat)} warm calls; one profiled call: {pr['host_launches']} host launches, "
+                  f"{pr['kernels']} kernels ({pr['k1']} K1), device busy {pr['busy_ms']:.2f} ms of "
+                  f"{pr['wall_ms']:.2f} ({100 * pr['busy_share']:.1f}%), of the p50 "
+                  f"{100 * pr['busy_ms'] / p50:.1f}% [{self.smi}]", flush=True)
+        return prof
+
+
+def staged_graphs_phase(op, smi, syns):
+    """Phase 27: the JAX Synthesizer's staged and batched programs as CUDA
+    graphs (`inference._run`: text -> style -> duration or phase A, then
+    prosody -> decode; one graph per program and key) on phase 26's
+    Synthesizers (`syns`: Config() and libritts_config() with the seeded
+    voice at full width, each with the f32 and the bf16 decoder, the
+    utterance pinned as the bench pins it): `synthesize` staged and with the
+    fused phase A (`phase_a_mode`), and `inference_batch` of one text and of
+    SERVE_TEXTS (B = 8, mixed lengths), each a `_ChainCase`; then a request
+    of another text and frame bucket (SHORT_TEXT) and each path again,
+    unchanged; every shape K1 ran at is one of phase 3's; each path timed
+    (B = 8 and the eager chains over half the calls) and profiled but
+    B = 1, whose graphs are the fused phase A path's, beside its eager chain
+    (staged and B = 8; the other two chains are the staged one's with phase
+    A fused); the graph count and the pool. Returns its K1 launches."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from test_torch_cuda import _eager_chain
+
+    start, launches = time.perf_counter(), op.adain_snake.launches
+    for name, syn, per_decode, speed, ref_s in syns:
+        tag = f"27 graphs {name} {str(syn.decoder_dtype).split('.')[-1]}"
+        kw = {} if ref_s is None else {"ref_s": ref_s}
+        refs = None if ref_s is None else np.repeat(ref_s, len(SERVE_TEXTS), axis=0)
+
+        def synthesize(seed, fused=False, syn=syn, kw=kw, speed=speed):
+            syn.phase_a_mode = "fused" if fused else "staged"
+            try:
+                return [syn.synthesize(BENCH_TEXT, seed=seed, speed=speed, **kw).wav]
+            finally:
+                syn.phase_a_mode = "staged"
+
+        paths = (("staged inference", synthesize, {}),
+                 ("inference, phase_a='fused'", lambda seed, f=synthesize: f(seed, True),
+                  {"time_eager": False}),
+                 ("inference_batch B=1", lambda seed, syn=syn, kw=kw, speed=speed:
+                  syn.inference_batch([BENCH_TEXT], seed=seed, speed=speed, **kw),
+                  {"time_eager": False, "profiled": False}),
+                 ("inference_batch B=8", lambda seed, syn=syn, refs=refs, speed=speed:
+                  syn.inference_batch(SERVE_TEXTS, ref_s=refs, seed=seed, speed=speed),
+                  {"runs": STAGED_RUNS // 2}))
+        with _Tally(op) as tally:
+            cases = [_ChainCase(op, syn, tag, what, call, per_decode, smi, _eager_chain, **opts)
+                     for what, call, opts in paths]
+            other = syn.synthesize(SHORT_TEXT, seed=2, speed=speed, **kw)
+            same = all(case.again() for case in cases[::-1])
+        shapes = sorted(tally.shapes["K1"])
+        unchecked = [c for c in shapes if c not in KERNEL_CASES + GRAPH_CASES]
+        pool = sum(g.pool_bytes for g in syn.graphs.values()) / 2 ** 20
+        print(f"[{tag}] a request of another text and frame bucket ({len(other.wav)} samples) "
+              f"and then every path again: unchanged {same}; {len(syn.graphs)} graphs "
+              f"{sorted(collections.Counter(k[0] for k in syn.graphs).items())}, pool "
+              f"{pool:.1f} MiB; K1 ran at {[c[0] for c in shapes]}, {len(unchecked)} of them not "
+              f"held in phase 3, {tally.plain} plain-version calls [{smi}]", flush=True)
+        if unchecked or tally.plain:
+            raise RuntimeError(f"[{tag}] K1 at {unchecked} not held in phase 3, or "
+                               f"{tally.plain} plain-version calls")
+        for case in cases:
+            case.time()
+        for case in cases:
+            case.profile()
+        del cases
+    del syns, syn
+    torch.cuda.empty_cache()
+    print(f"[27 graphs] phase 27 in {time.perf_counter() - start:.1f} s wall [{smi}]", flush=True)
+    return op.adain_snake.launches - launches
 
 
 def main():
@@ -2958,6 +3281,7 @@ def main():
           flush=True)
 
     # 2. build
+    GRAPHS.install(op)
     t0 = time.perf_counter()
     lib = op.build()
     print(f"[2 build] {lib.relative_to(Path(op.__file__).resolve().parents[2])} "
@@ -2974,17 +3298,25 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     natural = syn.synthesize(BENCH_TEXT, seed=0)  # calibration; also the warm-up
     speed = max(len(natural.wav) / 24000.0 / TARGET_AUDIO_SEC, 1.0)
+    for text, seed in REQUESTS:  # warm-up: each request's graphs captured, warm latencies
+        syn.synthesize(text, seed=seed, speed=speed)
     with _Counts(op, syn.models["decoder"]) as lj:
         _requests(op, syn, "4 main", smi, CALLS_PER_DECODE, 0, speed=speed)
     lj.check(CALLS_PER_DECODE, "LJSpeech path")
     print(f"[4 main] speed {speed:.3f} (natural {len(natural.wav) / 24000.0:.2f} s); "
           f"{lj.launches} kernel launches, 0 plain-version calls", flush=True)
 
-    # 5. reference: the same weights on the CPU, through the plain version
+    # 5. reference: the same weights on the CPU, through the plain version; the
+    # card's graphs captured anew with the source's phase zeroed, their draws fed to the CPU
     ref_syn = Synthesizer(Config(), seed=0, device="cpu")
     noise = np.random.default_rng(0).standard_normal((1, 1, 256)).astype(np.float32)
-    got = _host_draws(syn.synthesize, REQUESTS[1][0], noise=noise, speed=speed)
-    want = _host_draws(ref_syn.synthesize, REQUESTS[1][0], noise=noise, speed=speed)
+    syn.graphs.clear()
+    with _SharedDraws(False) as draws:
+        got = syn.synthesize(REQUESTS[1][0], noise=noise, speed=speed)
+        draws.feed()
+        want = ref_syn.synthesize(REQUESTS[1][0], noise=noise, speed=speed)
+        if not draws.kept or draws.left():
+            raise RuntimeError(f"[5 reference] {draws.left()} of {len(draws.kept)} draws not taken")
     del ref_syn
     if not np.array_equal(got.pred_dur, want.pred_dur):
         raise RuntimeError(f"durations differ: {got.pred_dur} vs {want.pred_dur}")
@@ -3017,7 +3349,7 @@ def main():
         raise RuntimeError("compute_style: GPU and CPU disagree")
     natural = ms.synthesize(BENCH_TEXT, ref_s=ref_s, seed=0)  # calibration; also the warm-up
     ms_speed = max(len(natural.wav) / 24000.0 / TARGET_AUDIO_SEC, 1.0)
-    for text, seed in REQUESTS[1:]:  # warm-up at the other requests' shapes: warm latencies
+    for text, seed in REQUESTS:  # warm-up: each request's graphs captured, warm latencies
         ms.synthesize(text, ref_s=ref_s, seed=seed, speed=ms_speed)
     with _Counts(op, ms.models["decoder"]) as lt:
         first = _requests(op, ms, "6 libritts", smi, CALLS_PER_HIFIGAN_DECODE, 50,
@@ -3042,12 +3374,23 @@ def main():
     # The random-init Generator drives its tanh head ~200x into saturation, so
     # the waveform's unsaturated samples would carry the head input's absolute
     # error; both copies get the head gain tests/torch_parity.py gives it.
+    # The card's graphs are captured anew with the sines zeroed, their draws fed to the CPU.
     for m in (ms, ms_cpu):
         m.models["decoder"].generator.conv_post.weight_g.mul_(0.01)
     noise = np.random.default_rng(1).standard_normal((1, 1, 256)).astype(np.float32)
-    got = _host_draws(ms.synthesize, REQUESTS[1][0], ref_s=ref_cpu, noise=noise, speed=ms_speed)
-    want = _host_draws(ms_cpu.synthesize, REQUESTS[1][0], ref_s=ref_cpu, noise=noise,
-                       speed=ms_speed)
+
+    def shared(fn, *args, **kwargs):
+        ms.graphs.clear()
+        with _SharedDraws(True) as draws:
+            got = getattr(ms, fn)(*args, **kwargs)
+            draws.feed()
+            want = getattr(ms_cpu, fn)(*args, **kwargs)
+            if draws.left():
+                raise RuntimeError(f"[8 reference] {fn}: {draws.left()} draws not taken")
+        ms.graphs.clear()
+        return got, want
+
+    got, want = shared("synthesize", REQUESTS[1][0], ref_s=ref_cpu, noise=noise, speed=ms_speed)
     if not np.array_equal(got.pred_dur, want.pred_dur):
         raise RuntimeError(f"libritts durations differ: {got.pred_dur} vs {want.pred_dur}")
     s_err, w_err = _rel(got.s_pred, want.s_pred), _rel(got.wav, want.wav)
@@ -3057,8 +3400,7 @@ def main():
         raise RuntimeError("libritts request: GPU and CPU disagree")
     texts = [REQUESTS[1][0], "hˈɛloʊ ðɛɹ.", REQUESTS[2][0]]
     refs = np.concatenate([ref_cpu, ref_cpu * 0.5, -ref_cpu])
-    got = _host_draws(ms.inference_batch, texts, ref_s=refs, speed=ms_speed)
-    want = _host_draws(ms_cpu.inference_batch, texts, ref_s=refs, speed=ms_speed)
+    got, want = shared("inference_batch", texts, ref_s=refs, speed=ms_speed)
     errs = []
     for i, (g, w) in enumerate(zip(got, want)):
         if g.shape != w.shape or not np.isfinite(g).all():
@@ -3101,8 +3443,10 @@ def main():
     done(24)
     nb_k1, nb_k2 = notebook_phase(op, smi)  # 25
     done(25)
-    fused_k1 = fused_phase(op, smi)  # 26
+    fused_k1, syns = fused_phase(op, smi)  # 26
     done(26)
+    graphs_k1 = staged_graphs_phase(op, smi, syns)  # 27
+    done(27)
 
     def row(t, shape, dtype):
         return {"shape": list(shape), "dtype": dtype, "ms": t["cold"][0], "plain_ms": t["cold"][1],
@@ -3116,7 +3460,8 @@ def main():
         "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
         "replaces": "styletts2_tpu/ops/pallas_kernels.py:38",
         "launches": lj.launches + lt.launches + sv.launches + train_k1 + stage2_k1 + bf16_k1 + mp_k1
-        + ref_k1 + remat_k1 + lt2_k1 + ddp_k1 + fid_k1 + tp_k1 + bench_k1 + nb_k1 + fused_k1,
+        + ref_k1 + remat_k1 + lt2_k1 + ddp_k1 + fid_k1 + tp_k1 + bench_k1 + nb_k1 + fused_k1
+        + graphs_k1,
         "max_abs_err": max_err["float32"],
         "ms": fwd["cold"][0], "plain_ms": fwd["cold"][1], "bound_ms": fwd["bound"],
         "bound_by": "bytes", "library_ms": None, "shape": list(fwd_shape),

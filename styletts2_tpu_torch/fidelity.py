@@ -35,6 +35,7 @@ import json
 import os
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -57,28 +58,42 @@ TRAIN_SEED, HELD_OUT_SEED = 3, 999
 PRE_TMA = 10 ** 9
 
 
+def _speechlike(n, f0, harmonics, env, noise, sr=24000) -> np.ndarray:
+    """One item of `speechlike_batch` from its draws."""
+    t = np.arange(n) / sr
+    f0 = 120.0 + 60.0 * np.sin(2 * np.pi * f0[0] * t) + f0[1]
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    sig = np.zeros(n)
+    for h, offset in enumerate(harmonics, start=1):
+        sig += np.sin(h * phase + offset) / h
+    env = 0.4 + 0.6 * np.clip(np.sin(2 * np.pi * env[0] * t + env[1]), 0, None)
+    sig = sig * env + 0.01 * noise
+    return (0.3 * sig / (np.abs(sig).max() + 1e-6)).astype(np.float32)
+
+
 def speechlike_batch(rng: np.random.Generator, B: int, bucket: int = 48000, wav_len: int = 27000,
                      T_text: int = 12) -> Batch:
     """Harmonic pseudo-speech: an F0 contour, 8 decaying harmonics, breath
     noise and a syllabic envelope, `wav_len` to `wav_len` + 3000 samples
     in a bucket of `bucket`; random texts of T_text tokens. The JAX tool's
-    draws, in its order: for the same `rng` state its arrays are bit-equal."""
-    sr = 24000
+    draws, in its order: for the same `rng` state its arrays are bit-equal.
+    The draws come first, one item after the other; the items' signals are
+    then computed on threads (numpy's ufuncs release the GIL), each with
+    the JAX tool's operations in its order."""
+    draws = []
+    for _ in range(B):
+        n = wav_len + int(rng.integers(0, 3000))
+        f0 = (rng.uniform(0.5, 2.0), rng.uniform(-20, 40))
+        harmonics = [rng.uniform(0, 2 * np.pi) for _ in range(8)]
+        env = (rng.uniform(2.0, 5.0), rng.uniform(0, 6))
+        draws.append((n, f0, harmonics, env, rng.standard_normal(n)))
+    with ThreadPoolExecutor(min(B, os.cpu_count() or 1)) as pool:
+        sigs = list(pool.map(lambda d: _speechlike(*d), draws))
     waves = np.zeros((B, bucket), np.float32)
     wave_lengths = np.zeros(B, np.int32)
     mel_lengths = np.zeros(B, np.int32)
-    for b in range(B):
-        n = wav_len + int(rng.integers(0, 3000))
-        t = np.arange(n) / sr
-        f0 = 120.0 + 60.0 * np.sin(2 * np.pi * rng.uniform(0.5, 2.0) * t) + rng.uniform(-20, 40)
-        phase = 2 * np.pi * np.cumsum(f0) / sr
-        sig = np.zeros(n)
-        for h in range(1, 9):
-            sig += np.sin(h * phase + rng.uniform(0, 2 * np.pi)) / h
-        env = 0.4 + 0.6 * np.clip(
-            np.sin(2 * np.pi * rng.uniform(2.0, 5.0) * t + rng.uniform(0, 6)), 0, None)
-        sig = sig * env + 0.01 * rng.standard_normal(n)
-        sig = (0.3 * sig / (np.abs(sig).max() + 1e-6)).astype(np.float32)
+    for b, sig in enumerate(sigs):
+        n = len(sig)
         waves[b, :n] = sig
         wave_lengths[b] = n
         ml = n // 300 + 1

@@ -11,38 +11,43 @@ A batch pads its texts to one text bucket and one frame bucket; per-item
 lengths mask the LSTMs and the denoiser, and the decoder's instance norms
 see the padded frames, as in the JAX `inference_batch`. The text and frame
 buckets stay because they change the numbers (masked padding, the decoded
-length); the staged path runs eagerly under `torch.inference_mode()`. The stages
-are `torch.profiler.record_function` spans (text, style, duration, prosody,
-decode) for the profiler; without one they cost ~1 us.
+length).
 
-With `decoder_dtype="bfloat16"` the decode stage alone runs in bf16 (its
+The JAX Synthesizer's programs, with its boundaries, each a method on
+device tensors: `_text` (tokens -> t_en, bert_dur, d_en), `_style` (the
+sampled style, the long-form carry-over and the reference mix), `_duration`
+(the rounded durations, 0 past each length), `_phase_a_program` (the three
+as one program), `_prosody` (the alignment built from the durations, F0 and
+energy) and `_decode` (the waveform, or 16-bit PCM); `_fused` is the whole
+pipeline over a fixed frame budget. `inference` chains text -> style ->
+duration (`phase_a="staged"`) or phase A (`phase_a="fused"`);
+`inference_batch` always runs phase A; then the durations come to the host
+(speed, +5 pad, frame bucket) and prosody -> decode follow: two host syncs
+per request, the durations and the waveform. On a card each program is one
+CUDA graph (`_Graph`), captured at its first call for each key (batch, text
+bucket, frame bucket, steps, CFG scale, as the JAX jit cache keys them), K1
+inside; a call copies its inputs into the graph's buffers and replays it.
+The graphs' generator is seeded once per request, so the chained replays
+draw what the chained programs draw when run eagerly with one generator. On
+the CPU the same programs run eagerly. Their LSTMs take the lengths on the
+device (`layers.masked_lstms`), so nothing in them waits for the host. The
+replays are `torch.profiler.record_function` spans (text, style, duration,
+phase_a, prosody, decode); without a profiler they cost ~1 us.
+
+With `decoder_dtype="bfloat16"` the decode program alone runs in bf16 (its
 weights cast once, its text features and style cast per call) and hands
 back an f32 waveform; the decoder keeps its f32 islands (the sine source's
 phase, the normalisation statistics, the weight norm, the iSTFT head). The
-text, style, duration and prosody stages stay f32, so the durations are
-those of the f32 path.
-
-The JAX Synthesizer's single-dispatch paths (`styletts2_tpu/inference.py`):
-`inference_fused` runs text, style, duration, the alignment over a fixed
-frame budget, prosody and the decoder as one program, and
-`Synthesizer(phase_a="fused")` runs `inference`'s text, style and duration
-as one program. On a card each program is one CUDA graph (`_Graph`),
-captured at its first call for each (text bucket, frame budget, steps,
-CFG scale), K1 inside; a call copies its inputs into the graph's buffers,
-reseeds the graph's generator and replays it, and copies back the
-waveform and its length (phase A: the durations). On the CPU the same
-programs run eagerly. Their LSTMs take the lengths on the device
-(`layers.masked_lstms`), so nothing in them waits for the host.
+other programs stay f32, so the durations are those of the f32 path.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import re
 import threading
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,6 +66,7 @@ SAMPLES_PER_FRAME = 600  # 2 mel frames per aligned frame x 300 samples per mel 
 TEXT_BUCKET = 64
 FRAME_BUCKET = 100
 DECODER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+PCM16_SCALE = 32767.0
 
 
 def decode(decoder: torch.nn.Module, asr: torch.Tensor, F0: torch.Tensor, N: torch.Tensor,
@@ -83,10 +89,9 @@ def _f32(x, *shape) -> torch.Tensor:
 
 
 class _Mix(NamedTuple):
-    """The per-call scalars: floats in the staged path, 0-dim tensors of
-    one device vector (`_inputs`' "scalars") in the single-dispatch programs, so that
-    a graph's call can change them. Each weight pair is computed on the host
-    as the staged path's expressions are, so both paths multiply by the
+    """The per-call scalars, as 0-dim tensors of one device vector (the
+    programs' "scalars" input), so that a graph's call can change them. Each
+    weight pair is computed on the host, so every path multiplies by the
     same f32 values."""
     alpha: Union[float, torch.Tensor]
     alpha_c: Union[float, torch.Tensor]  # 1 - alpha
@@ -107,47 +112,59 @@ def _pack(wav: torch.Tensor, total: torch.Tensor, *_) -> torch.Tensor:
     return torch.cat([wav[0], total.to(wav.dtype)])
 
 
+def _valid(tokens: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """(B, T) bool: the tokens within each length."""
+    return torch.arange(tokens.shape[1], device=tokens.device)[None, :] < lengths[:, None]
+
+
 class _Graph:
     """A program captured as one CUDA graph on the card of its generator.
 
-    `fn(**static)` runs once eagerly on a side stream (the warm-up builds
-    K1 and reads its plans, and makes cuDNN's and cuFFT's plans and the
-    STFT caches), then once under capture. The static tensors are the
-    graph's inputs, `out` its outputs, both overwritten by the next call.
-    The program's draws come from `generator`, registered with the graph: a
-    replay after `generator.manual_seed(s)` draws what an eager run from a
-    generator seeded s draws, and moves the generator as far. A capture
-    that fails raises. `pool` is another graph's memory pool to capture
-    into (`graph.pool()`), None for a pool of its own. `capture_s` is the
-    warm-up and the capture's wall, `pool_bytes` the memory the capture
-    added to the pool, `k1` K1's launches in one replay."""
+    `fn(generator, **static)` runs once eagerly on a side stream with a
+    generator of its own (the warm-up builds K1 and reads its plans, and
+    makes cuDNN's and cuFFT's plans and the STFT caches), then once under
+    capture. The static tensors, copies of `inputs` on the card, are the
+    graph's inputs; `out`, the graph's outputs, are buffers of their own
+    outside the memory pool (the capture ends in copies into them), so no
+    other graph's replay reaches them; both are overwritten by the next
+    call. The program's draws come from `generator`, registered with the
+    graph: a replay draws from the generator's state and moves it as far as
+    an eager run would, so replays after one `generator.manual_seed(s)` draw
+    what eager runs from one generator seeded s draw. A capture that fails
+    raises. `pool` is another graph's memory pool to capture into
+    (`graph.pool()`), None for a pool of its own. `capture_s` is the warm-up
+    and the capture's wall, `pool_bytes` the memory the capture added to
+    the pool, `k1` K1's launches in one replay."""
 
-    def __init__(self, fn: Callable, static: Dict[str, torch.Tensor], generator: torch.Generator,
-                 pool=None):
+    def __init__(self, fn: Callable, inputs: Dict[str, torch.Tensor],
+                 generator: torch.Generator, pool=None):
         dev = generator.device
-        self.static, self.generator = static, generator
+        self.generator = generator
+        self.static = {k: v.to(dev, copy=True) for k, v in inputs.items()}
         t0 = time.perf_counter()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            fn(**static)
+            warm = fn(torch.Generator(dev), **self.static)
         torch.cuda.current_stream(dev).wait_stream(side)
+        self.out = tuple(torch.empty_like(w) for w in warm)
+        del warm
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(generator)
         with adain_snake.recorded() as k1, torch.cuda.graph(self.graph, pool=pool):
-            self.out = fn(**static)
+            for o, r in zip(self.out, fn(generator, **self.static)):
+                o.copy_(r)
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.k1 = k1[0]
 
-    def __call__(self, seed: int, **inputs: torch.Tensor):
+    def __call__(self, **inputs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         for k, v in inputs.items():
             self.static[k].copy_(v)
-        self.generator.manual_seed(seed)
         self.graph.replay()
         adain_snake.replayed(self.k1)
         return self.out
@@ -176,9 +193,10 @@ class Synthesizer:
     the EDM data scale the style sampler denoises with (a stage-2
     checkpoint's estimate); `decoder_dtype` is "float32" (None) or
     "bfloat16" (see the module's docstring). `phase_a` is "staged" or
-    "fused": whether `inference` runs its text, style and duration stages
-    one by one or as one program (a CUDA graph on a card; the same numbers
-    either way)."""
+    "fused": whether `inference` runs its text, style and duration programs
+    one by one or as one program (the same numbers either way). On a card
+    `graphs` holds the captured programs by key; they share one memory
+    pool, and `_lock` serialises the requests that replay them."""
 
     def __init__(self, cfg: Config, state_dict=None, seed: int = 0, device="cuda",
                  sigma_data: float = 0.2, decoder_dtype: Optional[str] = None,
@@ -193,9 +211,9 @@ class Synthesizer:
         if phase_a not in ("staged", "fused"):
             raise ValueError(f"phase_a {phase_a!r}: 'staged' or 'fused'")
         self.phase_a_mode = phase_a
-        self.graphs: Dict[tuple, _Graph] = {}  # captured programs by (kind, T, ...)
-        self._generator = None  # the graphs' generator, made at the first capture
-        self._lock = threading.Lock()  # a call's replay and its reads of the graph's outputs
+        self.graphs: Dict[tuple, _Graph] = {}  # captured programs by (kind, B, T, ...)
+        self._generator = None  # the graphs' generator, made at the first request
+        self._lock = threading.Lock()  # one request's replays and its reads of their outputs
         self.sigma_data = float(sigma_data)
         self.decoder_dtype = DECODER_DTYPES[decoder_dtype or "float32"]
         mp = cfg.model_params
@@ -225,12 +243,12 @@ class Synthesizer:
                   diffusion_steps: int = 5, embedding_scale: float = 1.0, seed: int = 0,
                   s_prev: Optional[np.ndarray] = None, s_prev_weight: float = 0.0,
                   pad_last_token: Optional[bool] = None, trim_samples: Optional[int] = None,
-                  speed: float = 1.0, raw_text: bool = False):
+                  speed: float = 1.0, raw_text: bool = False, pcm16: bool = False):
         """Pre-phonemized IPA text (plain text with raw_text) -> (wav float32
         at 24 kHz, s_pred (1, 2*style_dim))."""
         r = self.synthesize(text, ref_s, noise, alpha, beta, diffusion_steps, embedding_scale,
                             seed, s_prev, s_prev_weight, pad_last_token, trim_samples, speed,
-                            raw_text)
+                            raw_text, pcm16)
         return r.wav, r.s_pred
 
     def synthesize(self, text: str, ref_s: Optional[np.ndarray] = None,
@@ -238,7 +256,7 @@ class Synthesizer:
                    diffusion_steps: int = 5, embedding_scale: float = 1.0, seed: int = 0,
                    s_prev: Optional[np.ndarray] = None, s_prev_weight: float = 0.0,
                    pad_last_token: Optional[bool] = None, trim_samples: Optional[int] = None,
-                   speed: float = 1.0, raw_text: bool = False) -> Synthesis:
+                   speed: float = 1.0, raw_text: bool = False, pcm16: bool = False) -> Synthesis:
         """`inference`, also returning the integer durations.
 
         ref_s: the reference style (1, 2*style_dim) of `compute_style`
@@ -253,7 +271,9 @@ class Synthesizer:
         drawn from `seed + 1`. The churn and the decoder's sine source draw
         from `seed`. raw_text: `text` is plain text, phonemized first
         (`text.phonemize`, espeak-ng; ImportError without it), as the
-        reference's inference cells do."""
+        reference's inference cells do. pcm16: the decode program ends in
+        16-bit PCM, clamp(wav * 32767) as int16, and the host divides by
+        32767, as the JAX `stage_decode_pcm16` serves."""
         if raw_text:
             text = phonemize(text)
         if pad_last_token is None:
@@ -263,7 +283,7 @@ class Synthesizer:
         tokens = encode_text(text)
         out = self._run([tokens], ref_s, noise, alpha, beta, diffusion_steps, embedding_scale,
                         seed, s_prev, s_prev_weight, pad_last_token, speed,
-                        fused_phase_a=self.phase_a_mode == "fused")
+                        self.phase_a_mode == "fused", pcm16)
         pred_dur = out.pred_dur[0, : len(tokens)]
         wav = out.wavs[0, : int(pred_dur.sum()) * SAMPLES_PER_FRAME]
         if trim_samples:
@@ -289,12 +309,12 @@ class Synthesizer:
                float(embedding_scale))
 
         def program(generator, **program_inputs):
-            return _pack(*self._fused(**program_inputs, frame_budget=frame_budget,
-                                      steps=diffusion_steps, scale=float(embedding_scale),
-                                      generator=generator))
+            return (_pack(*self._fused(generator, **program_inputs, frame_budget=frame_budget,
+                                       steps=diffusion_steps, scale=float(embedding_scale))),)
 
         with torch.inference_mode(), self._lock:
-            out = self._dispatch(key, program, inputs, seed)[0].cpu().numpy()
+            (out,) = self._dispatch(key, program, inputs, self._request_generator(seed))
+            out = out.cpu().numpy()
         return out[: int(out[-1]) * SAMPLES_PER_FRAME]
 
     def inference_batch(self, texts: Sequence[str], ref_s: Optional[np.ndarray] = None,
@@ -302,11 +322,12 @@ class Synthesizer:
                         embedding_scale: float = 1.0, seed: int = 0,
                         speed: float = 1.0) -> List[np.ndarray]:
         """Length-masked batched synthesis of len(texts) utterances in one
-        pass; ref_s is (1 or B, 2*style_dim). Returns the float32 waveforms,
-        each sum(durations) * 600 samples, less 50 when multispeaker."""
+        pass, phase A as one program (as the JAX `inference_batch`); ref_s is
+        (1 or B, 2*style_dim). Returns the float32 waveforms, each
+        sum(durations) * 600 samples, less 50 when multispeaker."""
         out = self._run([encode_text(t) for t in texts], ref_s, None, alpha, beta,
                         diffusion_steps, embedding_scale, seed, None, 0.0,
-                        not self.multispeaker, speed)
+                        not self.multispeaker, speed, True)
         trim = 50 if self.multispeaker else 0
         return [w[: int(d.sum()) * SAMPLES_PER_FRAME - trim]
                 for w, d in zip(out.wavs, out.pred_dur)]
@@ -346,25 +367,41 @@ class Synthesizer:
             wavs.append(wav)
         return np.concatenate(wavs) if wavs else np.zeros(0, np.float32)
 
+    # ------------------------------------------------------------------
+    # the programs' inputs, their dispatch and the host logic between them
+
+    def _host_inputs(self, toks: List[np.ndarray], ref_s, mix: _Mix,
+                     s_prev=None) -> Dict[str, torch.Tensor]:
+        """A padded batch's inputs to text, style and phase A, on the host:
+        tokens (B, T) padded to one text bucket, lengths (B,), the
+        reference style feats (B, 2*style_dim; zeros without one), the
+        scalars of `mix` and the carry-over style s_prev (B, 2*style_dim;
+        zeros without one, whose weight in `mix` is then 0)."""
+        B, sd = len(toks), self.style_dim
+        lengths = torch.tensor([len(t) for t in toks])
+        tokens = torch.zeros((B, _bucket(int(lengths.max()), TEXT_BUCKET, TEXT_BUCKET)),
+                             dtype=torch.int64)
+        for i, t in enumerate(toks):
+            tokens[i, : len(t)] = torch.from_numpy(t)
+
+        def rows(x):
+            return torch.zeros((B, 2 * sd)) if x is None else \
+                _f32(x, -1, 2 * sd).expand(B, -1).contiguous()
+
+        return {"tokens": tokens, "lengths": lengths, "feats": rows(ref_s),
+                "scalars": torch.tensor(list(mix), dtype=torch.float32), "s_prev": rows(s_prev)}
+
     def _inputs(self, tokens: np.ndarray, ref_s, noise, mix: _Mix, seed: int,
                 s_prev=None) -> Dict[str, torch.Tensor]:
         """One utterance's inputs to the single-dispatch programs, on the
-        device: tokens (1, T) padded to the text bucket, lengths (1,), the
+        device: `_host_inputs` of it (s_prev only when given) and the
         starting noise (1, 1, 2*style_dim; drawn from seed + 1 unless
-        given), the reference style feats (1, 2*style_dim; zeros without
-        one), the scalars of `mix` and, with `s_prev`, the carry-over style
-        (zeros without one)."""
-        dev, sd = self.device, self.style_dim
-        T = _bucket(len(tokens), TEXT_BUCKET, TEXT_BUCKET)
-        padded = torch.zeros((1, T), dtype=torch.int64)
-        padded[0, : len(tokens)] = torch.from_numpy(tokens)
-        inputs = {"tokens": padded.to(dev), "lengths": torch.tensor([len(tokens)]).to(dev),
-                  "noise": self._noise(noise, 1, seed),
-                  "feats": torch.zeros((1, 2 * sd), device=dev) if ref_s is None
-                  else _f32(ref_s, 1, 2 * sd).to(dev),
-                  "scalars": torch.tensor(list(mix), dtype=torch.float32).to(dev)}
-        if s_prev is not None:
-            inputs["s_prev"] = s_prev
+        given)."""
+        inputs = self._host_inputs([tokens], ref_s, mix, s_prev)
+        if s_prev is None:
+            del inputs["s_prev"]
+        inputs = {k: v.to(self.device) for k, v in inputs.items()}
+        inputs["noise"] = self._noise(noise, 1, seed)
         return inputs
 
     def _noise(self, noise, B: int, seed: int) -> torch.Tensor:
@@ -376,151 +413,186 @@ class Synthesizer:
         return torch.randn((B, 1, 2 * self.style_dim), device=dev,
                            generator=torch.Generator(dev).manual_seed(seed + 1))
 
-    def _dispatch(self, key: tuple, program: Callable, inputs: Dict[str, torch.Tensor],
-                  seed: int):
-        """`program(generator, **inputs)` for one utterance: on the CPU run
-        eagerly with a generator seeded `seed`; on a card replay the CUDA
-        graph under `key`, captured at its first use with copies of `inputs`
-        as its static inputs, after seeding the graphs' generator. Returns
-        (the program's outputs, the generator later draws continue from).
-        The graphs share the first one's memory pool: a replay may overwrite
-        another graph's outputs, so the caller reads them under `self._lock`
-        (which serialises the replays) before releasing it."""
+    def _request_generator(self, seed: int) -> torch.Generator:
+        """The generator a request's programs draw from, seeded `seed` once
+        per request: on the CPU a new one, on a card the graphs' own."""
         if self.device.type == "cpu":
-            generator = torch.Generator().manual_seed(seed)
-            return program(generator, **inputs), generator
-        if key not in self.graphs:
-            if self._generator is None:
-                self._generator = torch.Generator(self.device)
+            return torch.Generator().manual_seed(seed)
+        if self._generator is None:
+            self._generator = torch.Generator(self.device)
+        return self._generator.manual_seed(seed)
+
+    def _dispatch(self, key: tuple, program: Callable, inputs: Dict[str, torch.Tensor],
+                  generator: torch.Generator) -> Tuple[torch.Tensor, ...]:
+        """`program(generator, **inputs)`: on the CPU run eagerly; on a card
+        replay the CUDA graph under `key`, captured at its first use into
+        the pool of the first graph (inputs may lie on the host or on the
+        card). A replay overwrites the outputs of the previous replay of the
+        same key, so the caller reads them under `self._lock`."""
+        if self.device.type == "cpu":
+            return program(generator, **inputs)
+        graph = self.graphs.get(key)
+        if graph is None:
             pool = next(iter(self.graphs.values())).graph.pool() if self.graphs else None
-            self.graphs[key] = _Graph(lambda **st: program(self._generator, **st),
-                                      {k: v.clone() for k, v in inputs.items()}, self._generator,
-                                      pool)
-        return self.graphs[key](seed, **inputs), self._generator
-
-    def _phase_a(self, tokens, lengths, valid, noise, feats, mix: _Mix, steps: int,
-                 scale: float, generator, s_prev=None):
-        """Text, style and duration of a padded batch: tokens (B, T),
-        lengths (B,), valid (B, T) int32, noise (B, 1, 2*style_dim), feats
-        (B, 2*style_dim) or None (single-speaker) -> (t_en (B, H, T), d
-        (B, T, H + style_dim), s, ref (B, style_dim), the unrounded
-        durations (B, T))."""
-        m, sd = self.models, self.style_dim
-        with record_function("text"):
-            t_en = m["text_encoder"](tokens, lengths)  # (B, H, T)
-            bert_dur = m["bert"](tokens, valid)  # (B, T, 768)
-            d_en = m["bert_encoder"](bert_dur)  # (B, T, H)
-
-        def net(x, c_noise):
-            return m["diffusion"](x, c_noise, bert_dur, embedding_scale=scale,
-                                  embedding_lengths=lengths,
-                                  features=feats if self.multispeaker else None)
-
-        with record_function("style"):
-            # the sampler's Karras sigmas are host floats: constants of a captured graph
-            s_pred = sample_adpm2(make_denoise_fn(net, self.sigma_data), noise, steps,
-                                  generator=generator)[:, 0, :]
-            if s_prev is not None:  # long-form carry-over
-                s_pred = mix.prev * s_prev + mix.new * s_pred
-            ref, s = s_pred[:, :sd], s_pred[:, sd:]
-            if self.multispeaker:
-                ref = mix.alpha * ref + mix.alpha_c * feats[:, :sd]
-                s = mix.beta * s + mix.beta_c * feats[:, sd:]
-
-        with record_function("duration"):
-            d = m["predictor"].encode_texts(d_en, s, lengths)  # (B, T, H + sd)
-            duration = torch.sigmoid(m["predictor"].duration(d, lengths)).sum(dim=-1)
-        return t_en, d, s, ref, duration
-
-    def _phase_b(self, t_en, d, s, ref, aln, generator) -> torch.Tensor:
-        """Prosody and the decoder over the alignment aln (B, T, F) -> the
-        f32 waveforms (B, F * 600)."""
-        m = self.models
-        with record_function("prosody"):
-            en = torch.einsum("btc,btf->bcf", d, aln)
-            asr = torch.einsum("bct,btf->bcf", t_en, aln)
-            if self.hifigan:  # the reference shifts the HiFi-GAN input one frame right
-                en = torch.cat([en[..., :1], en[..., :-1]], dim=-1)
-                asr = torch.cat([asr[..., :1], asr[..., :-1]], dim=-1)
-            F0, N = m["predictor"].F0Ntrain(en, s)
-        with record_function("decode"):
-            return decode(m["decoder"], asr, F0, N, ref, generator)
-
-    def _phase_a_program(self, generator, tokens, lengths, noise, feats, scalars, s_prev, *,
-                         steps: int, scale: float):
-        """Phase A as one program (`phase_a="fused"`; the JAX `_make_phase_a`)
-        on the inputs of `_inputs` -> (t_en, d, s, ref, durations (B, T)
-        int64, rounded, 0 past each length)."""
-        valid = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < lengths[:, None]
-        with masked_lstms():
-            t_en, d, s, ref, duration = self._phase_a(
-                tokens, lengths, valid.to(torch.int32), noise, feats, _Mix(*scalars.unbind()),
-                steps, scale, generator, s_prev)
-        pred_dur = torch.clamp(torch.round(duration), min=1.0)
-        return t_en, d, s, ref, torch.where(valid, pred_dur, 0.0).to(torch.int64)
-
-    def _fused(self, tokens, lengths, noise, feats, scalars, *, frame_budget: int, steps: int,
-               scale: float, generator):
-        """The whole pipeline as one program (the JAX `_make_fused`) on the
-        inputs of `_inputs` -> (waveforms (B, frame_budget * 600) f32,
-        min(sum(durations), frame_budget) (B,), durations (B, T) int64)."""
-        mix = _Mix(*scalars.unbind())
-        valid = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < lengths[:, None]
-        with masked_lstms():
-            t_en, d, s, ref, duration = self._phase_a(
-                tokens, lengths, valid.to(torch.int32), noise, feats, mix, steps, scale,
-                generator)
-            pred_dur = torch.clamp(torch.round(duration / mix.speed), min=1.0)
-            pred_dur = torch.where(valid, pred_dur, 0.0).to(torch.int64)
-            aln = duration_to_alignment(pred_dur, frame_budget)
-            wav = self._phase_b(t_en, d, s, ref, aln, generator)
-        return wav, torch.clamp(pred_dur.sum(dim=1), max=frame_budget), pred_dur
+            graph = self.graphs[key] = _Graph(program, inputs, generator, pool)
+        return graph(**inputs)
 
     @torch.inference_mode()
     def _run(self, toks: List[np.ndarray], ref_s, noise, alpha, beta, diffusion_steps,
              embedding_scale, seed, s_prev, s_prev_weight, pad_last_token, speed,
-             fused_phase_a: bool = False) -> _Batch:
-        """Synthesis of a padded batch: phase A staged (each stage on its
-        own, the lengths on the host) or, with fused_phase_a (one
-        utterance), as one program; the durations rounded on the host;
-        prosody and the decoder staged."""
-        dev, sd = self.device, self.style_dim
-        B, lengths_np = len(toks), np.asarray([len(t) for t in toks])
+             fused_phase_a: bool = False, pcm16: bool = False) -> _Batch:
+        """Synthesis of a padded batch as the JAX Synthesizer's chain of
+        programs: text -> style -> duration, or phase A as one program
+        (`fused_phase_a`); the durations and the style to the host (the
+        first sync), rounded there for speed, the +5 pad and the frame
+        bucket; prosody -> decode; the waveforms to the host (the second)."""
+        B, sd = len(toks), self.style_dim
         mix = _mix(alpha, beta, s_prev_weight if s_prev is not None else 0.0)
-        prev = None if s_prev is None else _f32(s_prev, -1, 2 * sd).to(dev)
-        with self._lock if fused_phase_a else contextlib.nullcontext():
-            if fused_phase_a:  # no carry-over: weight 0 (`mix`) on zeros
-                prev = torch.zeros((1, 2 * sd), device=dev) if prev is None else prev
-                inputs = self._inputs(toks[0], ref_s, noise, mix, seed, prev)
-                program = functools.partial(self._phase_a_program, steps=diffusion_steps,
-                                            scale=float(embedding_scale))
-                key = ("phase_a", inputs["tokens"].shape[1], diffusion_steps,
-                       float(embedding_scale))
-                (t_en, d, s, ref, pred_dur), gen = self._dispatch(key, program, inputs, seed)
+        host = self._host_inputs(toks, ref_s, mix, s_prev)
+        lengths_np = host["lengths"].numpy()
+        T, steps, scale = host["tokens"].shape[1], diffusion_steps, float(embedding_scale)
+        with self._lock:
+            gen = self._request_generator(seed)
+            inputs = dict(host, noise=self._noise(noise, B, seed))
+            if fused_phase_a:
+                with record_function("phase_a"):
+                    t_en, d, s, ref, s_out, pred_dur = self._dispatch(
+                        ("phase_a", B, T, steps, scale),
+                        functools.partial(self._phase_a_program, steps=steps, scale=scale),
+                        inputs, gen)
             else:
-                T = _bucket(int(lengths_np.max()), TEXT_BUCKET, TEXT_BUCKET)
-                tokens = torch.zeros((B, T), dtype=torch.int64)
-                for i, t in enumerate(toks):
-                    tokens[i, : len(t)] = torch.from_numpy(t)
-                lengths = torch.from_numpy(lengths_np)  # host-side: LSTM packing reads it
-                valid = (torch.arange(T)[None, :] < lengths[:, None]).to(torch.int32).to(dev)
-                feats = None
-                if self.multispeaker:
-                    feats = torch.zeros((B, 2 * sd)) if ref_s is None else _f32(ref_s, -1, 2 * sd)
-                    feats = feats.expand(B, -1).contiguous().to(dev)
-                gen = torch.Generator(dev).manual_seed(seed)
-                t_en, d, s, ref, duration = self._phase_a(
-                    tokens.to(dev), lengths, valid, self._noise(noise, B, seed), feats, mix,
-                    diffusion_steps, embedding_scale, gen, prev)
-                pred_dur = torch.clamp(torch.round(duration), min=1.0).to(torch.int64)
-            pred_dur = pred_dur.cpu().numpy()
-            pred_dur[np.arange(pred_dur.shape[1])[None, :] >= lengths_np[:, None]] = 0
+                with record_function("text"):
+                    t_en, bert_dur, d_en = self._dispatch(
+                        ("text", B, T), self._text,
+                        {k: inputs[k] for k in ("tokens", "lengths")}, gen)
+                with record_function("style"):
+                    s, ref, s_out = self._dispatch(
+                        ("style", B, T, steps, scale),
+                        functools.partial(self._style, steps=steps, scale=scale),
+                        dict(bert_dur=bert_dur, **{k: inputs[k] for k in (
+                            "lengths", "noise", "feats", "scalars", "s_prev")}), gen)
+                with record_function("duration"):
+                    d, pred_dur = self._dispatch(("duration", B, T), self._duration,
+                                                 {"d_en": d_en, "s": s, "lengths": host["lengths"]},
+                                                 gen)
+            first = torch.cat([pred_dur.to(s_out.dtype), s_out], dim=1).cpu().numpy()
+            pred_dur, s_out = first[:, :T].astype(np.int64), first[:, T:]
             for i, L in enumerate(lengths_np):
                 if speed != 1.0:
                     pred_dur[i, :L] = np.maximum(np.round(pred_dur[i, :L] / speed), 1)
                 if pad_last_token:
                     pred_dur[i, L - 1] += 5
             n_frames = _bucket(int(pred_dur.sum(axis=1).max()), FRAME_BUCKET, FRAME_BUCKET)
-            aln = duration_to_alignment(torch.from_numpy(pred_dur).to(dev), n_frames)
-            wavs = self._phase_b(t_en, d, s, ref, aln, gen).cpu().numpy()
-            return _Batch(wavs, torch.cat([ref, s], dim=-1).cpu().numpy(), pred_dur)
+            with record_function("prosody"):
+                asr, F0, N = self._dispatch(
+                    ("prosody", B, T, n_frames),
+                    functools.partial(self._prosody, n_frames=n_frames),
+                    {"t_en": t_en, "d": d, "s": s, "pred_dur": torch.from_numpy(pred_dur)}, gen)
+            with record_function("decode"):
+                (wav,) = self._dispatch(("decode", B, n_frames, pcm16),
+                                        functools.partial(self._decode, pcm16=pcm16),
+                                        {"asr": asr, "F0": F0, "N": N, "ref": ref}, gen)
+            wavs = wav.cpu().numpy()
+        if pcm16:
+            wavs = wavs.astype(np.float32) / PCM16_SCALE
+        return _Batch(wavs, s_out, pred_dur)
+
+    # ------------------------------------------------------------------
+    # the programs: each on device tensors, the same body on the CPU and,
+    # captured, on a card; each returns a tuple
+
+    def _text(self, generator, tokens, lengths):
+        """The JAX `stage_text`: tokens (B, T), lengths (B,) -> (t_en (B, H,
+        T), bert_dur (B, T, 768), d_en (B, T, H))."""
+        m = self.models
+        with masked_lstms():
+            t_en = m["text_encoder"](tokens, lengths)
+        bert_dur = m["bert"](tokens, _valid(tokens, lengths).to(torch.int32))
+        return t_en, bert_dur, m["bert_encoder"](bert_dur)
+
+    def _style(self, generator, bert_dur, lengths, noise, feats, scalars, s_prev=None, *,
+               steps: int, scale: float):
+        """The JAX `stage_style`: the style sampled by `steps` of ADPM2 from
+        noise (B, 1, 2*style_dim), conditioned on bert_dur and, multispeaker,
+        on the reference feats (B, 2*style_dim), at CFG scale `scale`; with
+        s_prev the long-form carry-over; multispeaker, the mix with feats ->
+        (s, ref (B, style_dim), s_out = [ref | s])."""
+        m, sd, mix = self.models, self.style_dim, _Mix(*scalars.unbind())
+
+        def net(x, c_noise):
+            return m["diffusion"](x, c_noise, bert_dur, embedding_scale=scale,
+                                  embedding_lengths=lengths,
+                                  features=feats if self.multispeaker else None)
+
+        # the sampler's Karras sigmas are host floats: constants of a captured graph
+        s_pred = sample_adpm2(make_denoise_fn(net, self.sigma_data), noise, steps,
+                              generator=generator)[:, 0, :]
+        if s_prev is not None:  # the long-form carry-over
+            s_pred = mix.prev * s_prev + mix.new * s_pred
+        ref, s = s_pred[:, :sd], s_pred[:, sd:]
+        if self.multispeaker:
+            ref = mix.alpha * ref + mix.alpha_c * feats[:, :sd]
+            s = mix.beta * s + mix.beta_c * feats[:, sd:]
+        return s, ref, torch.cat([ref, s], dim=-1)
+
+    def _durations(self, d_en, s, lengths):
+        """The predictor's text encoding d (B, T, H + style_dim) and the
+        unrounded durations (B, T)."""
+        p = self.models["predictor"]
+        with masked_lstms():
+            d = p.encode_texts(d_en, s, lengths)
+            return d, torch.sigmoid(p.duration(d, lengths)).sum(dim=-1)
+
+    def _duration(self, generator, d_en, s, lengths):
+        """The JAX `stage_duration` -> (d, durations (B, T) int64:
+        max(round(duration), 1), 0 past each length)."""
+        d, duration = self._durations(d_en, s, lengths)
+        pred_dur = torch.clamp(torch.round(duration), min=1.0)
+        return d, torch.where(_valid(d_en, lengths), pred_dur, 0.0).to(torch.int64)
+
+    def _phase_a_program(self, generator, tokens, lengths, noise, feats, scalars, s_prev, *,
+                         steps: int, scale: float):
+        """Phase A as one program (the JAX `_make_phase_a`): text, style and
+        duration -> (t_en, d, s, ref, s_out, durations)."""
+        t_en, bert_dur, d_en = self._text(generator, tokens, lengths)
+        s, ref, s_out = self._style(generator, bert_dur, lengths, noise, feats, scalars, s_prev,
+                                    steps=steps, scale=scale)
+        d, pred_dur = self._duration(generator, d_en, s, lengths)
+        return t_en, d, s, ref, s_out, pred_dur
+
+    def _prosody(self, generator, t_en, d, s, pred_dur, *, n_frames: int):
+        """The JAX `stage_prosody`: the alignment (B, T, n_frames) of the
+        durations pred_dur (B, T), the aligned text features (shifted one
+        frame right for HiFi-GAN) and F0Ntrain -> (asr (B, H, F), F0, N)."""
+        aln = duration_to_alignment(pred_dur, n_frames)
+        en = torch.einsum("btc,btf->bcf", d, aln)
+        asr = torch.einsum("bct,btf->bcf", t_en, aln)
+        if self.hifigan:  # the reference shifts the HiFi-GAN input one frame right
+            en = torch.cat([en[..., :1], en[..., :-1]], dim=-1)
+            asr = torch.cat([asr[..., :1], asr[..., :-1]], dim=-1)
+        F0, N = self.models["predictor"].F0Ntrain(en, s)
+        return asr, F0, N
+
+    def _decode(self, generator, asr, F0, N, ref, *, pcm16: bool = False):
+        """The JAX `stage_decode` -> (the f32 waveforms (B, F * 600),), or
+        `stage_decode_pcm16` -> (int16 clamp(wav * 32767),)."""
+        wav = decode(self.models["decoder"], asr, F0, N, ref, generator)
+        if pcm16:
+            return (torch.clamp(wav * PCM16_SCALE, -32768.0, 32767.0).to(torch.int16),)
+        return (wav,)
+
+    def _fused(self, generator, tokens, lengths, noise, feats, scalars, *, frame_budget: int,
+               steps: int, scale: float):
+        """The whole pipeline as one program (the JAX `_make_fused`) on the
+        inputs of `_inputs` -> (waveforms (B, frame_budget * 600) f32,
+        min(sum(durations), frame_budget) (B,), durations (B, T) int64)."""
+        mix = _Mix(*scalars.unbind())
+        t_en, bert_dur, d_en = self._text(generator, tokens, lengths)
+        s, ref, _ = self._style(generator, bert_dur, lengths, noise, feats, scalars,
+                                steps=steps, scale=scale)
+        d, duration = self._durations(d_en, s, lengths)
+        pred_dur = torch.clamp(torch.round(duration / mix.speed), min=1.0)
+        pred_dur = torch.where(_valid(tokens, lengths), pred_dur, 0.0).to(torch.int64)
+        asr, F0, N = self._prosody(generator, t_en, d, s, pred_dur, n_frames=frame_budget)
+        (wav,) = self._decode(generator, asr, F0, N, ref)
+        return wav, torch.clamp(pred_dur.sum(dim=1), max=frame_budget), pred_dur

@@ -196,9 +196,11 @@ def _slices(T, k, S, head):
     return out
 
 
-# every shape the main paths give K1 and K2 (chip_smoke.py's cases), and a
-# row too long for the cluster's shared memory
-PLAN_CASES = sorted({(shape, False) for shape, _ in chip_smoke.KERNEL_CASES}
+# every shape the main paths give K1 and K2 (chip_smoke.py's cases, the
+# staged and batched graphs' among them), and a row too long for the
+# cluster's shared memory
+PLAN_CASES = sorted({(shape, False)
+                     for shape, _ in chip_smoke.KERNEL_CASES + chip_smoke.GRAPH_CASES}
                     | {(shape, True) for shape, _ in chip_smoke.BWD_CASES}) + [((1, 32, 480000), False)]
 # an H100 SXM's room: 132 SMs; 227 KB of shared memory per block and 228 KB
 # per SM, 1 KB of which each block reserves; up to 512 bytes of the kernels'

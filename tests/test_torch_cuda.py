@@ -1,5 +1,7 @@
 """The port's CUDA kernels (the fused AdaIN+snake forward, K1, and its
-backward, K2) against their plain PyTorch versions, on the card.
+backward, K2) against their plain PyTorch versions, on the card; the
+synthesis paths' CUDA graphs against the same programs run eagerly; the
+BiLSTM's precision on the card against f64.
 
 Marked `gpu`: it needs an NVIDIA GPU and nvcc, and skips elsewhere. It
 imports neither JAX nor the JAX package, so it runs on a machine with
@@ -13,6 +15,8 @@ and dalpha's sum over B and T add up to 3.8e5 f32 terms in another order
 than torch: rtol 1e-4 with atol 1e-4 of the gradient's peak; dx in bf16 is
 one bf16 rounding of an O(1) value (2e-2).
 """
+
+import contextlib
 
 import pytest
 import torch
@@ -308,7 +312,7 @@ def test_fused_graph_replay_equals_eager(cuda, config, per_decode):
     kw = dict(frame_budget=120, ref_s=ref_s, diffusion_steps=3, speed=4.0)
     before = adain_snake.launches
     wav = syn.inference_fused(FUSED_TEXT, seed=0, **kw)
-    (graph,) = syn.graphs.values()
+    (graph,) = syn.graphs.values()  # one program: no other graph
     assert graph.k1 == per_decode
     assert adain_snake.launches - before == 2 * per_decode  # the warm-up and one replay
     before = adain_snake.launches
@@ -317,8 +321,8 @@ def test_fused_graph_replay_equals_eager(cuda, config, per_decode):
     assert np.array_equal(wav, again) and not np.array_equal(wav, other)
     inputs = syn._inputs(encode_text(FUSED_TEXT), ref_s, None, _mix(0.3, 0.7, speed=4.0), 0)
     with torch.inference_mode():
-        eager = _pack(*syn._fused(**inputs, frame_budget=120, steps=3, scale=1.0,
-                                  generator=torch.Generator(cuda).manual_seed(0))).cpu().numpy()
+        eager = _pack(*syn._fused(torch.Generator(cuda).manual_seed(0), **inputs,
+                                  frame_budget=120, steps=3, scale=1.0)).cpu().numpy()
     eager = eager[: int(eager[-1]) * 600]
     assert eager.shape == wav.shape and np.isfinite(wav).all()
     assert np.abs(wav - eager).max() <= 1e-5 * np.abs(eager).max()
@@ -326,25 +330,27 @@ def test_fused_graph_replay_equals_eager(cuda, config, per_decode):
 
 def test_phase_a_graph_equals_staged(cuda):
     """Synthesizer(phase_a="fused") on the card: text, style and duration
-    replayed as one graph (no K1 in it), the durations and the waveform
-    those of the staged path."""
+    replayed as one graph (no K1 in it), then the prosody and decode
+    graphs, the durations and the waveform those of the staged chain."""
     import numpy as np
 
     staged = _tiny_synthesizer("ljspeech", cuda)
     fused = _tiny_synthesizer("ljspeech", cuda, phase_a="fused")
     want = staged.synthesize(FUSED_TEXT, diffusion_steps=3, speed=4.0, seed=2)
     got = fused.synthesize(FUSED_TEXT, diffusion_steps=3, speed=4.0, seed=2)
-    (graph,) = fused.graphs.values()
-    assert graph.k1 == 0
+    assert [k[0] for k in fused.graphs] == ["phase_a", "prosody", "decode"]
+    assert [k[0] for k in staged.graphs] == ["text", "style", "duration", "prosody", "decode"]
+    assert [g.k1 for g in fused.graphs.values()] == [0, 0, 48]
     np.testing.assert_array_equal(got.pred_dur, want.pred_dur)
     assert got.wav.shape == want.wav.shape
     assert np.abs(got.wav - want.wav).max() <= 1e-5 * np.abs(want.wav).max()
 
 
 def test_graphs_of_one_synthesizer_share_a_pool(cuda):
-    """A Synthesizer's graphs share the first one's memory pool: a phase-A
-    graph and two `inference_fused` graphs (budgets 120 and 60) replayed in
-    turn each give what their first call gave, bit for bit."""
+    """A Synthesizer's graphs share the first one's memory pool: the
+    phase-A, prosody and decode graphs of a request and two
+    `inference_fused` graphs (budgets 120 and 60) replayed in turn each
+    give what their first call gave, bit for bit."""
     import numpy as np
 
     syn = _tiny_synthesizer("ljspeech", cuda, phase_a="fused")
@@ -355,8 +361,119 @@ def test_graphs_of_one_synthesizer_share_a_pool(cuda):
                                          speed=4.0)]
     first = [call() for call in calls]
     graphs = list(syn.graphs.values())
-    assert len(graphs) == 3
+    assert len(graphs) == 5
     assert all(g.graph.pool() == graphs[0].graph.pool() for g in graphs)
     for _ in range(2):
         for call, want in zip(calls[::-1], first[::-1]):
             np.testing.assert_array_equal(call(), want)
+
+
+@contextlib.contextmanager
+def _eager_chain(syn):
+    """Within it, `syn`'s requests run the same chain of programs eagerly on
+    the card: each program method called directly where it would replay."""
+    syn._dispatch = lambda key, program, inputs, generator: program(
+        generator, **{k: v.to(syn.device) for k, v in inputs.items()})
+    try:
+        yield
+    finally:
+        del syn._dispatch
+
+
+@pytest.mark.parametrize("config,per_decode", [("ljspeech", 48), ("libritts", 96)])
+def test_staged_and_batched_chains_equal_eager(cuda, config, per_decode):
+    """`inference` (staged) and `inference_batch` of 3 mixed-length texts on
+    the card: one graph per program and key, the chain of replays equal bit
+    for bit to the same programs run eagerly on the card, same-seed calls
+    bit-equal and another seed's different, each call one decode replay of
+    the K1 its capture recorded; both chains unchanged after keys of another
+    B, T and F were captured and replayed in between."""
+    import numpy as np
+
+    syn = _tiny_synthesizer(config, cuda)
+    ref_s = (0.5 * np.random.default_rng(0).standard_normal((3, 64))).astype(np.float32) \
+        if syn.multispeaker else None
+    texts = [FUSED_TEXT, "hˈɛloʊ.", "ɐ ʃˈɔːɹt wˈʌn."]
+    calls = [lambda seed: [syn.synthesize(FUSED_TEXT, diffusion_steps=3, speed=4.0, seed=seed,
+                                          ref_s=None if ref_s is None else ref_s[:1]).wav],
+             lambda seed: syn.inference_batch(texts, ref_s=ref_s, diffusion_steps=3, speed=4.0,
+                                              seed=seed)]
+    for call in calls:
+        first = call(0)
+        before = adain_snake.launches
+        again, other = call(0), call(1)
+        assert adain_snake.launches - before == 2 * per_decode
+        with _eager_chain(syn):
+            eager = call(0)
+        for a, b, c, e in zip(first, again, other, eager):
+            assert np.isfinite(a).all() and np.array_equal(a, b) and np.array_equal(a, e)
+            assert not np.array_equal(a, c)
+    kinds = [k[0] for k in syn.graphs]
+    assert kinds == ["text", "style", "duration", "prosody", "decode", "phase_a", "prosody",
+                     "decode"], kinds
+    assert all(g.k1 == (per_decode if k[0] == "decode" else 0) for k, g in syn.graphs.items())
+    want = [call(0) for call in calls]
+    syn.synthesize(" ".join([FUSED_TEXT] * 3), diffusion_steps=3, speed=1.0, seed=5,
+                   ref_s=None if ref_s is None else ref_s[:1])  # another T and F
+    syn.inference_batch(texts[:2], diffusion_steps=3, speed=4.0, seed=6,
+                        ref_s=None if ref_s is None else ref_s[:2])  # another B
+    assert len(syn.graphs) > 8
+    for call, w in zip(calls[::-1], want[::-1]):
+        for a, b in zip(call(0), w):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_pcm16_on_the_card(cuda):
+    """`inference(pcm16=True)` on the card: its decode graph ends in int16
+    clamp(wav * 32767), the host divides by 32767: the f32 chain's waveform
+    scaled, clamped and truncated, the same length."""
+    import numpy as np
+
+    syn = _tiny_synthesizer("ljspeech", cuda)
+    kw = dict(diffusion_steps=3, speed=4.0, seed=1)
+    f32, _ = syn.inference(FUSED_TEXT, **kw)
+    pcm, _ = syn.inference(FUSED_TEXT, pcm16=True, **kw)
+    assert any(k[0] == "decode" and k[3] for k in syn.graphs)  # its own graph
+    want = np.trunc(np.clip(f32 * np.float32(32767.0), -32768, 32767))
+    assert pcm.shape == f32.shape
+    np.testing.assert_array_equal(np.round(pcm * 32767.0), want)
+
+
+def bilstm_errors(shape, device, seed=0):
+    """The port's BiLSTM at (B, T, C, H) on `device`, train mode, full rows:
+    the relative L2 errors of its output, input gradient and weight
+    gradients against the same layer in f64 on the CPU."""
+    from styletts2_tpu_torch.models.layers import BiLSTM
+
+    B, T, C, H = shape
+    g = torch.Generator().manual_seed(seed)
+    ref = BiLSTM(C, H).double()
+    with torch.no_grad():
+        for w in ref.parameters():
+            w.copy_(torch.randn(w.shape, generator=g, dtype=torch.float64) * 0.1)
+    x, dy = torch.randn(B, T, C, generator=g), torch.randn(B, T, 2 * H, generator=g)
+    lstm = BiLSTM(C, H).to(device)
+    lstm.load_state_dict({k: v.float() for k, v in ref.state_dict().items()})
+    lstm.train()
+    xs = [x.double().requires_grad_(), x.to(device).requires_grad_()]
+    outs = [ref(xs[0]), lstm(xs[1])]
+    outs[0].backward(dy.double())
+    outs[1].backward(dy.to(device))
+
+    def rel(a, b):
+        return float((a.detach().double().cpu() - b.detach()).norm() / b.detach().norm())
+
+    grads = [torch.cat([w.grad.flatten() for w in m.parameters()]) for m in (ref, lstm)]
+    return rel(outs[1], outs[0]), rel(xs[1].grad, xs[0].grad), rel(grads[1], grads[0])
+
+
+@pytest.mark.parametrize("shape", [(16, 200, 640, 256), (2, 40, 96, 32)])
+def test_bilstm_is_f32_on_the_card(cuda, shape):
+    """The port's BiLSTM on the card (the prosody predictor's shared LSTM at
+    full width and batch 16, and at the narrow width of chip_smoke.py's
+    phase 19) within 2e-6 of an f64 reference in its output and gradients,
+    as f32 on the CPU is. cuDNN's unpacked path, which it ran before, reads
+    5.8e-6 / 6.1e-6 at the narrow width (TF32 off) and 1.1e-6 at the full
+    one; the packed path is f32 at both."""
+    errs = bilstm_errors(shape, cuda)
+    assert max(errs) <= 2e-6, errs

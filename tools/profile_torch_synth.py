@@ -12,7 +12,8 @@ calls at its shapes, then the median, min and max host latency of
 the host). Then one torch.profiler trace of the first request: kernel
 time by op, kernel launches, the device busy share
 (`observability.device_busy_ms` over the profiled call's wall) and each
-synthesis stage's host time, kernel time and launches. The profiler
+synthesis stage's host time, kernel time and launches (each stage is one
+CUDA graph replay; its kernels belong to the span of their graph's launch). The profiler
 slows the host, so its wall time exceeds the warm latency. `--trace` keeps
 the Chrome trace. `--decoder-dtype bfloat16` runs the bf16 decoder;
 convolutions and matmuls are f32 otherwise (TF32 off, as the entry points
@@ -38,7 +39,7 @@ from styletts2_tpu_torch.inference import Synthesizer  # noqa: E402
 from styletts2_tpu_torch.observability import device_busy_ms  # noqa: E402
 from styletts2_tpu_torch.utils import set_f32_compute  # noqa: E402
 
-STAGES = ("text", "style", "duration", "prosody", "decode")
+STAGES = ("text", "style", "duration", "phase_a", "prosody", "decode")
 
 
 def main():
