@@ -1,0 +1,8 @@
+"""inference.device_idle.p50: inference.device_idle (`inference.device_idle.py`) in the cells whose tail is not an
+end-to-end metric, where it moves latency_p50_ms."""
+
+from pathlib import Path
+
+from benchmark import spec
+
+read = spec.reader(Path(__file__).resolve().parents[1], "inference.device_idle")

@@ -1,0 +1,54 @@
+"""Finds a cell's pieces by name: its entry in BENCHMARK.json, its
+configuration file, its traffic file (`<paths[0]>/workloads/<cell>.json`)
+and each per-layer metric's reader (`<paths[0]>/metrics/<metric>.py`, a
+function `read(run)` that returns a number, or None where it finds nothing
+to read). Adding a configuration, a mix or a metric adds files and entries
+and edits none."""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Callable, List
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@dataclass
+class Cell:
+    name: str
+    chips: int
+    config: dict  # the configuration file
+    workload: dict  # the traffic file
+    end_to_end: List[dict]  # the metrics this cell reports with --trace 0
+    per_layer: List[dict]  # and with --trace 1
+    home: Path  # the benchmark's directory (paths[0])
+
+
+def _applies(metric: dict, cell: str) -> bool:
+    return "workloads" not in metric or cell in metric["workloads"]
+
+
+def load(name: str, root: Path = ROOT) -> Cell:
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    cells = {w["name"]: w for w in bench["workloads"]}
+    if name not in cells:
+        raise KeyError(f"no workload {name!r} in {root / 'BENCHMARK.json'}: {sorted(cells)}")
+    w = cells[name]
+    conf = {c["name"]: c for c in bench["configs"]}[w["config"]]
+    home = root / bench["paths"][0]
+    return Cell(name, int(w["chips"]), json.loads((root / conf["file"]).read_text()),
+                json.loads((home / "workloads" / f"{name}.json").read_text()),
+                [m for m in bench["end_to_end"] if _applies(m, name)],
+                [m for m in bench["per_layer"] if _applies(m, name)], home)
+
+
+def reader(home: Path, metric: str) -> Callable:
+    path = home / "metrics" / f"{metric}.py"
+    spec = importlib.util.spec_from_file_location(f"benchmark_metric_{metric.replace('.', '_')}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.read
