@@ -22,17 +22,34 @@ energy) and `_decode` (the waveform, or 16-bit PCM); `_fused` is the whole
 pipeline over a fixed frame budget. `inference` chains text -> style ->
 duration (`phase_a="staged"`) or phase A (`phase_a="fused"`);
 `inference_batch` always runs phase A; then the durations come to the host
-(speed, +5 pad, frame bucket) and prosody -> decode follow: two host syncs
-per request, the durations and the waveform. On a card each program is one
-CUDA graph (`_Graph`), captured at its first call for each key (batch, text
-bucket, frame bucket, steps, CFG scale, as the JAX jit cache keys them), K1
-inside; a call copies its inputs into the graph's buffers and replays it.
+(speed, +5 pad, frame bucket) and prosody -> decode follow: two
+device-to-host copies per request, the durations and the waveform. On a
+card each program is one CUDA graph (`_Graph`), captured at its first call
+for each key (batch, text bucket, frame bucket, steps, CFG scale, as the
+JAX jit cache keys them), K1 inside; a call copies its inputs into the
+graph's buffers and replays it. Each device-to-host copy is a host sync,
+and so is each copy of a host input (pageable): 10 syncs a staged
+request, 8 a batched one.
 The graphs' generator is seeded once per request, so the chained replays
 draw what the chained programs draw when run eagerly with one generator. On
 the CPU the same programs run eagerly. Their LSTMs take the lengths on the
-device (`layers.masked_lstms`), so nothing in them waits for the host. The
-replays are `torch.profiler.record_function` spans (text, style, duration,
-phase_a, prosody, decode); without a profiler they cost ~1 us.
+device (`layers.masked_lstms`), so nothing in them waits for the host.
+
+Spans (`observability.spans`, on the calling thread; the names are the
+benchmark readers' contract): `inference.call`, one `_run`, with B, T,
+`n_frames`, `frames_decoded` (B x n_frames) and `frames_answered` (the
+rows' durations after speed and the +5 pad, summed); in it the stage spans
+`text`, `style`, `duration` (or `phase_a`), `prosody` and `decode`, each
+with `device_ms`, its replay's time on the card from the graph's timing
+events (None on the CPU); `inference.wait`, each of the two
+device-to-host copies (the host blocked until the card is done, then the
+copy: one call); `inference.round` (the host rounding, the pad, the frame
+bucket); `inference.capture`, a graph captured inside a call, with its
+key, `capture_s` and `pool_bytes`. A span costs ~8 us of host time on the
+8-core host of an H100 machine (~1 us with `spans.enabled = False`): ~75
+us a staged request (9 spans), ~50 us a served one at four to a batch;
+with recording on against off no end-to-end metric of the benchmark moved
+beyond its runs' spread.
 
 With `decoder_dtype="bfloat16"` the decode program alone runs in bf16 (its
 weights cast once, its text features and style cast per call) and hands
@@ -51,12 +68,12 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, 
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from styletts2_tpu_torch.config import Config
 from styletts2_tpu_torch.models.build import build_models
 from styletts2_tpu_torch.models.diffusion.sampler import make_denoise_fn, sample_adpm2
 from styletts2_tpu_torch.models.layers import masked_lstms
+from styletts2_tpu_torch.observability import OFF, spans
 from styletts2_tpu_torch.ops import adain_snake
 from styletts2_tpu_torch.ops.stft import preprocess_mel
 from styletts2_tpu_torch.text import encode_text, phonemize
@@ -134,7 +151,19 @@ class _Graph:
     raises. `pool` is another graph's memory pool to capture into
     (`graph.pool()`), None for a pool of its own. `capture_s` is the warm-up
     and the capture's wall, `pool_bytes` the memory the capture added to
-    the pool, `k1` K1's launches in one replay."""
+    the pool, `k1` K1's launches in one replay. Two timing events are the
+    graph's first and last nodes: `device_ms()` is the last replay's time
+    on the card, from before its first kernel to after its last, without
+    the host's launch before the first node; read it once the card has
+    finished that replay. The launch hands the card a graph's ~900-2200
+    nodes in pieces, so on an idle card the first node can run while later
+    kernels still wait for the launch, and `device_ms` then holds that
+    wait: under a profiler, which slows launches, text read 5.4 ms on an
+    H100 against 4.0 ms from its first kernel to its last (3.9 ms
+    untraced). Untraced, behind another replay, as decode is behind
+    prosody, the launch is done before the card reaches the graph: decode
+    reads within 1% of its kernels' extent (under a profiler LibriTTS'
+    decode read 28.5 ms against 25.8)."""
 
     def __init__(self, fn: Callable, inputs: Dict[str, torch.Tensor],
                  generator: torch.Generator, pool=None):
@@ -154,9 +183,13 @@ class _Graph:
         reserved = torch.cuda.memory_reserved(dev)
         self.graph = torch.cuda.CUDAGraph()
         self.graph.register_generator_state(generator)
+        self.began, self.ended = (torch.cuda.Event(enable_timing=True, external=True)
+                                  for _ in range(2))
         with adain_snake.recorded() as k1, torch.cuda.graph(self.graph, pool=pool):
+            self.began.record()
             for o, r in zip(self.out, fn(generator, **self.static)):
                 o.copy_(r)
+            self.ended.record()
         torch.cuda.synchronize(dev)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
@@ -168,6 +201,9 @@ class _Graph:
         self.graph.replay()
         adain_snake.replayed(self.k1)
         return self.out
+
+    def device_ms(self) -> float:
+        return self.began.elapsed_time(self.ended)
 
 
 class Synthesis(NamedTuple):
@@ -425,17 +461,37 @@ class Synthesizer:
     def _dispatch(self, key: tuple, program: Callable, inputs: Dict[str, torch.Tensor],
                   generator: torch.Generator) -> Tuple[torch.Tensor, ...]:
         """`program(generator, **inputs)`: on the CPU run eagerly; on a card
-        replay the CUDA graph under `key`, captured at its first use into
-        the pool of the first graph (inputs may lie on the host or on the
-        card). A replay overwrites the outputs of the previous replay of the
-        same key, so the caller reads them under `self._lock`."""
+        replay the CUDA graph under `key`, captured at its first use into the pool of the first graph (span
+        `inference.capture`; inputs may lie on the host or on the card). A
+        replay overwrites the outputs of the previous replay of the same
+        key, so the caller reads them under `self._lock`."""
         if self.device.type == "cpu":
             return program(generator, **inputs)
         graph = self.graphs.get(key)
         if graph is None:
             pool = next(iter(self.graphs.values())).graph.pool() if self.graphs else None
-            graph = self.graphs[key] = _Graph(program, inputs, generator, pool)
+            with spans.span("inference.capture", key=key) as sp:
+                graph = self.graphs[key] = _Graph(program, inputs, generator, pool)
+                sp.set(capture_s=graph.capture_s, pool_bytes=graph.pool_bytes)
         return graph(**inputs)
+
+    def _stage(self, name: str, replays: list, key: tuple, program: Callable,
+               inputs: Dict[str, torch.Tensor], generator: torch.Generator):
+        """`_dispatch` as the stage span `name`; the span and the graph it
+        replayed (None on the CPU) are added to `replays`."""
+        with spans.span(name) as sp:
+            out = self._dispatch(key, program, inputs, generator)
+        replays.append((sp, self.graphs.get(key)))
+        return out
+
+    @staticmethod
+    def _fetch(x: torch.Tensor) -> np.ndarray:
+        """`x` on the host, as the span `inference.wait`: `x.cpu()` waits
+        for the card to finish the work queued before it, then copies (a
+        pageable copy), in one call. A sync of its own before the copy
+        would time the copy apart, but under load it wakes late (PERF.md)."""
+        with spans.span("inference.wait"):
+            return x.cpu().numpy()
 
     @torch.inference_mode()
     def _run(self, toks: List[np.ndarray], ref_s, noise, alpha, beta, diffusion_steps,
@@ -445,54 +501,63 @@ class Synthesizer:
         programs: text -> style -> duration, or phase A as one program
         (`fused_phase_a`); the durations and the style to the host (the
         first sync), rounded there for speed, the +5 pad and the frame
-        bucket; prosody -> decode; the waveforms to the host (the second)."""
+        bucket; prosody -> decode; the waveforms to the host (the second).
+        The span `inference.call` (a request of its own unless it lies in
+        another span) holds the stage spans, each with the `device_ms` of
+        its replay (None on the CPU), read after the second sync and only
+        while the recorder records."""
         B, sd = len(toks), self.style_dim
-        mix = _mix(alpha, beta, s_prev_weight if s_prev is not None else 0.0)
-        host = self._host_inputs(toks, ref_s, mix, s_prev)
-        lengths_np = host["lengths"].numpy()
-        T, steps, scale = host["tokens"].shape[1], diffusion_steps, float(embedding_scale)
-        with self._lock:
-            gen = self._request_generator(seed)
-            inputs = dict(host, noise=self._noise(noise, B, seed))
-            if fused_phase_a:
-                with record_function("phase_a"):
-                    t_en, d, s, ref, s_out, pred_dur = self._dispatch(
-                        ("phase_a", B, T, steps, scale),
+        request = None if spans.current() else spans.new_request()
+        with spans.span("inference.call", request=request, B=B) as call:
+            mix = _mix(alpha, beta, s_prev_weight if s_prev is not None else 0.0)
+            host = self._host_inputs(toks, ref_s, mix, s_prev)
+            lengths_np = host["lengths"].numpy()
+            T, steps, scale = host["tokens"].shape[1], diffusion_steps, float(embedding_scale)
+            call.set(T=T)
+            replays = []
+            with self._lock:
+                gen = self._request_generator(seed)
+                inputs = dict(host, noise=self._noise(noise, B, seed))
+                if fused_phase_a:
+                    t_en, d, s, ref, s_out, pred_dur = self._stage(
+                        "phase_a", replays, ("phase_a", B, T, steps, scale),
                         functools.partial(self._phase_a_program, steps=steps, scale=scale),
                         inputs, gen)
-            else:
-                with record_function("text"):
-                    t_en, bert_dur, d_en = self._dispatch(
-                        ("text", B, T), self._text,
+                else:
+                    t_en, bert_dur, d_en = self._stage(
+                        "text", replays, ("text", B, T), self._text,
                         {k: inputs[k] for k in ("tokens", "lengths")}, gen)
-                with record_function("style"):
-                    s, ref, s_out = self._dispatch(
-                        ("style", B, T, steps, scale),
+                    s, ref, s_out = self._stage(
+                        "style", replays, ("style", B, T, steps, scale),
                         functools.partial(self._style, steps=steps, scale=scale),
                         dict(bert_dur=bert_dur, **{k: inputs[k] for k in (
                             "lengths", "noise", "feats", "scalars", "s_prev")}), gen)
-                with record_function("duration"):
-                    d, pred_dur = self._dispatch(("duration", B, T), self._duration,
-                                                 {"d_en": d_en, "s": s, "lengths": host["lengths"]},
-                                                 gen)
-            first = torch.cat([pred_dur.to(s_out.dtype), s_out], dim=1).cpu().numpy()
-            pred_dur, s_out = first[:, :T].astype(np.int64), first[:, T:]
-            for i, L in enumerate(lengths_np):
-                if speed != 1.0:
-                    pred_dur[i, :L] = np.maximum(np.round(pred_dur[i, :L] / speed), 1)
-                if pad_last_token:
-                    pred_dur[i, L - 1] += 5
-            n_frames = _bucket(int(pred_dur.sum(axis=1).max()), FRAME_BUCKET, FRAME_BUCKET)
-            with record_function("prosody"):
-                asr, F0, N = self._dispatch(
-                    ("prosody", B, T, n_frames),
+                    d, pred_dur = self._stage(
+                        "duration", replays, ("duration", B, T), self._duration,
+                        {"d_en": d_en, "s": s, "lengths": host["lengths"]}, gen)
+                first = self._fetch(torch.cat([pred_dur.to(s_out.dtype), s_out], dim=1))
+                with spans.span("inference.round"):
+                    pred_dur, s_out = first[:, :T].astype(np.int64), first[:, T:]
+                    for i, L in enumerate(lengths_np):
+                        if speed != 1.0:
+                            pred_dur[i, :L] = np.maximum(np.round(pred_dur[i, :L] / speed), 1)
+                        if pad_last_token:
+                            pred_dur[i, L - 1] += 5
+                    n_frames = _bucket(int(pred_dur.sum(axis=1).max()), FRAME_BUCKET,
+                                       FRAME_BUCKET)
+                call.set(n_frames=n_frames, frames_decoded=B * n_frames,
+                         frames_answered=int(pred_dur.sum()))
+                asr, F0, N = self._stage(
+                    "prosody", replays, ("prosody", B, T, n_frames),
                     functools.partial(self._prosody, n_frames=n_frames),
                     {"t_en": t_en, "d": d, "s": s, "pred_dur": torch.from_numpy(pred_dur)}, gen)
-            with record_function("decode"):
-                (wav,) = self._dispatch(("decode", B, n_frames, pcm16),
-                                        functools.partial(self._decode, pcm16=pcm16),
-                                        {"asr": asr, "F0": F0, "N": N, "ref": ref}, gen)
-            wavs = wav.cpu().numpy()
+                (wav,) = self._stage("decode", replays, ("decode", B, n_frames, pcm16),
+                                     functools.partial(self._decode, pcm16=pcm16),
+                                     {"asr": asr, "F0": F0, "N": N, "ref": ref}, gen)
+                wavs = self._fetch(wav)
+                for sp, graph in replays:
+                    if sp is not OFF:
+                        sp.set(device_ms=None if graph is None else graph.device_ms())
         if pcm16:
             wavs = wavs.astype(np.float32) / PCM16_SCALE
         return _Batch(wavs, s_out, pred_dur)

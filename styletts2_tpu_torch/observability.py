@@ -5,21 +5,36 @@ JSON line per record and writes eval audio as WAV files and attention maps
 as .npy files beside it (no TensorBoard, no matplotlib). `StepTimer` is an
 EMA step meter, `trace` a torch.profiler trace written as a Chrome trace,
 `device_busy_ms` reads the card's busy time from one, and `nan_check`
-names the non-finite leaves of nested metrics or tensors."""
+names the non-finite leaves of nested metrics or tensors.
+
+`spans` is the process's span recorder (`Spans`): the server and the
+Synthesizer record each request's path through them as spans, raw
+`time.monotonic_ns()` intervals with ids, parents and attributes, into a
+bounded ring that a reader copies with `spans.snapshot()`. The names are
+listed where they are recorded (`serve.py`, `inference.py`); they are the
+readers' contract."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
 import logging
 import os
+import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from styletts2_tpu_torch.utils import write_wav
+
+# whether a profiler records this thread's operations (a profiler traces the
+# thread it was started on): far cheaper than a record_function block
+_profiling = torch._C._autograd._profiler_enabled
 
 
 def get_logger(log_dir: str, name: str = "styletts2_tpu_torch", rank: int = 0) -> logging.Logger:
@@ -123,6 +138,138 @@ def trace(log_dir: str, enabled: bool = True):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{time.time_ns()}.json"))
+
+
+class Span:
+    """One recorded interval: `id`, `parent` (the id of the span it lies
+    in, or None), `request` (the id of the request it serves, or None),
+    `name`, `thread` (the native id of the thread it started on), `start_ns`
+    and `end_ns` (`time.monotonic_ns()`; `end_ns` None while open) and
+    `attrs`, which `set` adds to. Used as a context manager (`Spans.span`),
+    it is the innermost open span of its thread and, where a profiler
+    records the thread as it opens, a `torch.profiler.record_function`
+    block of its name."""
+
+    __slots__ = ("id", "parent", "request", "name", "thread", "start_ns", "end_ns", "attrs",
+                 "_owner", "_stack", "_frame")
+
+    def __init__(self, owner: "Spans", stack: list, name: str, parent: Optional["Span"],
+                 request: Optional[int], attrs: dict):
+        self._owner, self._stack, self._frame = owner, stack, None
+        self.id = next(owner._ids)
+        if parent is None:
+            self.parent, self.request = None, request
+        else:
+            self.parent = parent.id
+            self.request = parent.request if request is None else request
+        self.name, self.attrs = name, attrs
+        self.thread = threading.get_native_id()
+        self.end_ns = None
+        self.start_ns = time.monotonic_ns()
+
+    def set(self, **attrs) -> None:
+        self.attrs.update(attrs)
+
+    def __enter__(self) -> "Span":
+        self._stack.append(self)
+        if _profiling():
+            self._frame = record_function(self.name)
+            self._frame.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._frame is not None:
+            self._frame.__exit__(*exc)
+        self._stack.pop()
+        self._owner.end(self)
+
+    def __repr__(self) -> str:
+        return (f"Span({self.name!r}, id={self.id}, parent={self.parent}, "
+                f"request={self.request}, {self.start_ns}-{self.end_ns}, {self.attrs})")
+
+
+class _Off:
+    """What `Spans` hands out while it records nothing."""
+
+    id = parent = request = None
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+OFF = _Off()
+
+
+class Spans:
+    """The span recorder: finished spans go into a ring of the last
+    `capacity`; recording takes no lock (the ring's append and the id
+    counter are atomic in CPython), makes no device call and does no I/O.
+    It computes nothing from what it records: readers do.
+
+    `span(name, ...)` is a span over a `with` block; a span that is not
+    entered ends at `end(span)`, on any thread (it is on no thread's stack
+    and not in a profiler's trace). A span's parent is the innermost open
+    span on its thread unless `parent` is given; its request id is the
+    parent's unless `request` is given (`new_request()` draws one).
+    `enabled = False` records nothing; `snapshot()` copies the ring, oldest
+    first (by end)."""
+
+    def __init__(self, capacity: int = 1 << 17):
+        self.enabled = True
+        self._ring: collections.deque = collections.deque(maxlen=capacity)
+        self._ids = itertools.count(1)
+        self._local = threading.local()
+
+    def _stack(self) -> list:
+        try:
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
+
+    def current(self) -> Optional[Span]:
+        """The innermost open span on this thread."""
+        stack = self._stack()
+        return stack[-1] if stack else None
+
+    def new_request(self) -> int:
+        return next(self._ids)
+
+    def span(self, name: str, parent: Optional[Span] = None, request: Optional[int] = None,
+             **attrs):
+        if not self.enabled:
+            return OFF
+        stack = self._stack()
+        if parent is None and stack:
+            parent = stack[-1]
+        return Span(self, stack, name, parent, request, attrs)
+
+    def end(self, span, **attrs) -> None:
+        if span is OFF:
+            return
+        if attrs:
+            span.attrs.update(attrs)
+        span.end_ns = time.monotonic_ns()
+        self._ring.append(span)
+
+    def snapshot(self) -> List[Span]:
+        while True:
+            try:
+                return list(self._ring)
+            except RuntimeError:  # appended to while copied
+                continue
+
+    def clear(self) -> None:
+        self._ring.clear()
+
+
+spans = Spans()
 
 
 DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")  # a Chrome trace's device categories

@@ -9,6 +9,19 @@ card sees one stream of work; concurrency comes from batching.
 
 Stdlib HTTP (http.server + threading); no web framework.
 
+Spans (`observability.spans`; for an operator, and the benchmark readers'
+contract). On the HTTP thread: `serve.request` (POST /tts, from reading the
+body to the response written; its request id and `status`), and in it
+`serve.parse` (reading and decoding the JSON),
+`serve.queue` (from the put into the batcher's queue to the start of the
+batch that took the request, with that `batch`; it ends on the worker
+thread, so a profiler's trace does not show it) and `serve.encode` (the
+WAV). On the worker thread: `serve.idle` (blocked on an empty queue),
+`serve.window` (the first request in hand, gathering until the window runs
+out or the batch is full) and `serve.batch` (one `inference_batch` call
+and the answers handed back; `batch`, the count in `Batcher.stats`, `B`
+and the `requests` ids), in which the Synthesizer's `inference.call` lies.
+
 Endpoints:
     GET  /healthz          liveness, the config's kind and the batcher's counts
     GET  /voices           voice names loaded from --voices at startup
@@ -41,6 +54,8 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from styletts2_tpu_torch.observability import spans
+
 SR = 24000
 
 
@@ -61,6 +76,7 @@ class _Request:
     done: threading.Event = field(default_factory=threading.Event)
     wav: Optional[np.ndarray] = None
     error: Optional[str] = None
+    queued: object = None  # its `serve.queue` span, ended by the batch that takes it
 
 
 class Batcher:
@@ -83,6 +99,7 @@ class Batcher:
         self._thread.start()
 
     def submit(self, req: _Request, timeout: float = 120.0) -> _Request:
+        req.queued = spans.span("serve.queue")
         self.q.put(req)
         if not req.done.wait(timeout):
             req.error = req.error or "synthesis timed out"
@@ -95,24 +112,26 @@ class Batcher:
 
     def _collect(self):
         """Block for one request, then gather compatible ones for window_ms."""
-        first = self.q.get()
+        with spans.span("serve.idle"):
+            first = self.q.get()
         if first is None:
             return []
-        group, leftovers = [first], []
-        deadline = time.monotonic() + self.window_s
-        while len(group) < self.max_batch:
-            remaining = deadline - time.monotonic()
-            if remaining <= 0:
-                break
-            try:
-                nxt = self.q.get(timeout=remaining)
-            except queue.Empty:
-                break
-            if nxt is None:
-                break
-            (group if nxt.params == first.params else leftovers).append(nxt)
-        for r in leftovers:
-            self.q.put(r)
+        with spans.span("serve.window"):
+            group, leftovers = [first], []
+            deadline = time.monotonic() + self.window_s
+            while len(group) < self.max_batch:
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    break
+                try:
+                    nxt = self.q.get(timeout=remaining)
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    break
+                (group if nxt.params == first.params else leftovers).append(nxt)
+            for r in leftovers:
+                self.q.put(r)
         return group
 
     def _run(self):
@@ -124,24 +143,32 @@ class Batcher:
             self.stats["batches"] += 1
             if len(group) > 1:
                 self.stats["batched_requests"] += len(group)
-            alpha, beta, steps, scale, speed, seed = group[0].params
-            try:
-                D = 2 * self.syn.style_dim
-                refs = np.concatenate([r.ref_s if r.ref_s is not None
-                                       else np.zeros((1, D), np.float32) for r in group])
-                # a lone request too: inference_batch of one text is inference
-                wavs = self.syn.inference_batch(
-                    [r.text for r in group], ref_s=refs, alpha=alpha, beta=beta,
-                    diffusion_steps=steps, embedding_scale=scale, speed=speed, seed=seed)
-                for r, w in zip(group, wavs):
-                    r.wav = w
-            except Exception as e:  # reported to each request; the server keeps serving
-                traceback.print_exc()
+            batch = self.stats["batches"]
+            with spans.span("serve.batch", batch=batch, B=len(group),
+                            requests=[r.queued.request for r in group]):
                 for r in group:
-                    r.error = f"{type(e).__name__}: {e}"
-            finally:
-                for r in group:
-                    r.done.set()
+                    spans.end(r.queued, batch=batch)
+                self._synthesize(group)
+
+    def _synthesize(self, group):
+        alpha, beta, steps, scale, speed, seed = group[0].params
+        try:
+            D = 2 * self.syn.style_dim
+            refs = np.concatenate([r.ref_s if r.ref_s is not None
+                                   else np.zeros((1, D), np.float32) for r in group])
+            # a lone request too: inference_batch of one text is inference
+            wavs = self.syn.inference_batch(
+                [r.text for r in group], ref_s=refs, alpha=alpha, beta=beta,
+                diffusion_steps=steps, embedding_scale=scale, speed=speed, seed=seed)
+            for r, w in zip(group, wavs):
+                r.wav = w
+        except Exception as e:  # reported to each request; the server keeps serving
+            traceback.print_exc()
+            for r in group:
+                r.error = f"{type(e).__name__}: {e}"
+        finally:
+            for r in group:
+                r.done.set()
 
 
 class TTSServer:
@@ -196,7 +223,8 @@ class TTSServer:
         req = self.batcher.submit(_Request(text=text, ref_s=ref_s, params=params))
         if req.error:
             raise RuntimeError(req.error)
-        return wav_bytes(req.wav)
+        with spans.span("serve.encode"):
+            return wav_bytes(req.wav)
 
     def healthz(self) -> dict:
         return {
@@ -237,17 +265,25 @@ class TTSServer:
                 if self.path != "/tts":
                     self._send_json(404, {"error": "not found"})
                     return
+                with spans.span("serve.request", request=spans.new_request()) as sp:
+                    code, body, ctype = self._tts()
+                    sp.set(status=code)
+                    self._send(code, body, ctype)
+
+            def _tts(self):
+                """(status, body, content type) of a POST /tts."""
                 try:
-                    n = int(self.headers.get("Content-Length", 0))
-                    wav = server.handle_tts(json.loads(self.rfile.read(n) or b"{}"))
+                    with spans.span("serve.parse"):
+                        n = int(self.headers.get("Content-Length", 0))
+                        body = json.loads(self.rfile.read(n) or b"{}")
+                    return 200, server.handle_tts(body), "audio/wav"
                 except ValueError as e:
-                    self._send_json(400, {"error": str(e)})
+                    code, err = 400, str(e)
                 except NotImplementedError as e:  # raw_text without a phonemizer
-                    self._send_json(501, {"error": str(e)})
+                    code, err = 501, str(e)
                 except Exception as e:
-                    self._send_json(500, {"error": f"{type(e).__name__}: {e}"})
-                else:
-                    self._send(200, wav, "audio/wav")
+                    code, err = 500, f"{type(e).__name__}: {e}"
+                return code, json.dumps({"error": err}).encode(), "application/json"
 
         return Handler
 

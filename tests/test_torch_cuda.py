@@ -477,3 +477,104 @@ def test_bilstm_is_f32_on_the_card(cuda, shape):
     one; the packed path is f32 at both."""
     errs = bilstm_errors(shape, cuda)
     assert max(errs) <= 2e-6, errs
+
+
+SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+LONG_TEXT = " ".join([FUSED_TEXT] * 3)  # 90 tokens with the pad in front
+
+
+def _trace(fn):
+    """`fn()` under a CPU and CUDA profiler, then a sync: the trace's events."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+
+
+@pytest.mark.parametrize("config", ["ljspeech", "libritts"])
+def test_stage_device_times_and_syncs_of_one_request(cuda, config):
+    """One staged request at the published widths. Each stage span holds its
+    graph's `device_ms` (timing events, the graph's first and last nodes);
+    replayed behind ~50 ms of queued work, so that its launch is submitted
+    whole before the card reaches it, a graph's `device_ms` lies within 3% or
+    50 us of its replay's device operations in a profiler trace from the
+    first's start to the last's end (found by the correlation of the one
+    `cudaGraphLaunch`), and is no less than their union less 3%. Read as the
+    benchmark reads it, in an untraced request with nothing queued before
+    decode's replay but prosody's, decode's `device_ms` holds to that extent
+    alike (under a profiler, which slows launches, it holds part of its
+    launch). Traced, the request syncs with the card as the code before the
+    spans did: once in each `inference.wait` (a device-to-host copy) and
+    elsewhere only in the copies of host inputs (pageable copies, each a
+    sync)."""
+    import numpy as np
+
+    from styletts2_tpu_torch.config import Config, libritts_config
+    from styletts2_tpu_torch.inference import Synthesizer
+    from styletts2_tpu_torch.observability import device_busy_ms, spans
+
+    syn = Synthesizer(libritts_config() if config == "libritts" else Config(), seed=0,
+                      device=cuda)
+    ref_s = (0.3 * np.random.default_rng(0).standard_normal((1, 256))).astype(np.float32) \
+        if syn.multispeaker else None
+    kw = dict(ref_s=ref_s, speed=9.0, seed=3)
+    syn.synthesize(LONG_TEXT, **kw)
+    spans.clear()
+    syn.synthesize(LONG_TEXT, **kw)
+    stages = {s.name: s.attrs["device_ms"] for s in spans.snapshot() if "device_ms" in s.attrs}
+    assert list(stages) == ["text", "style", "duration", "prosody", "decode"]
+    assert list(stages.values()) == [g.device_ms() for g in syn.graphs.values()]
+
+    rows = []
+    for key, graph in syn.graphs.items():
+        def replay():
+            torch.cuda._sleep(100_000_000)
+            graph.graph.replay()
+
+        ev = _trace(replay)
+        (launch,) = [e for e in ev if e.get("name") == "cudaGraphLaunch"]
+        work = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                and e.get("args", {}).get("correlation") == launch["args"]["correlation"]]
+        extent = (max(e["ts"] + e["dur"] for e in work) - min(e["ts"] for e in work)) / 1e3
+        rows.append((key[0], graph.device_ms(), extent, device_busy_ms(work), len(work)))
+    print(f"\n{config}: graph, device_ms, extent ms, union ms, operations: {rows}")
+    for name, ms, extent, union, n in rows:
+        assert abs(ms - extent) <= max(0.03 * extent, 0.05), (name, ms, extent, union, n)
+        assert ms >= 0.97 * union, (name, ms, extent, union, n)
+    extent = next(extent for name, _, extent, _, _ in rows if name == "decode")
+    print(f"{config}: decode in an untraced request: device_ms {stages['decode']}, extent ms "
+          f"{extent}")
+    assert abs(stages["decode"] - extent) <= max(0.03 * extent, 0.05), (stages["decode"], extent)
+
+    spans.clear()
+    ev = _trace(lambda: syn.synthesize(LONG_TEXT, **kw))
+    tid = next(s.thread for s in spans.snapshot() if s.name == "inference.call")
+    host = [e for e in ev if e.get("ph") == "X" and e.get("tid") == tid]
+
+    def blocks(name):
+        """The host intervals (us) of the span blocks named `name`."""
+        return [(e["ts"], e["ts"] + e["dur"]) for e in host
+                if e.get("name") == name and e.get("cat") != "cuda_runtime"]
+
+    ((lo, hi),) = blocks("inference.call")
+    syncs = [e for e in host if e.get("cat") == "cuda_runtime" and e.get("name") in SYNCS
+             and lo <= e["ts"] <= hi]
+    h2d = [e for e in ev if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    print(f"{config}: {len(syncs)} syncs, {len(h2d)} host-to-device copies")
+    waits = blocks("inference.wait")
+    assert len(waits) == 2
+    assert [sum(a <= e["ts"] <= b for e in syncs) for a, b in waits] == [1, 1]
+    assert len(syncs) == 2 + len(h2d)
