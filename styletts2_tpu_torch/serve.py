@@ -1,11 +1,15 @@
 """HTTP text-to-speech server with micro-batching, on the PyTorch port.
 
 The port's own copy of `styletts2_tpu/serve.py` (it cannot import that
-module: the JAX package's config imports PyYAML on import). Concurrent
-requests that arrive within a short window and share their sampler
-settings are fused into one `Synthesizer.inference_batch` call, and the
-waveforms are fanned back out. One worker thread runs the model, so the
-card sees one stream of work; concurrency comes from batching.
+module: the JAX package's config imports PyYAML on import). Queued
+requests that share their sampler settings are fused into one
+`Synthesizer.inference_batch` call, and the waveforms are fanned back out.
+One worker thread runs the model, so the card sees one stream of work;
+concurrency comes from batching. Unlike the JAX server, the worker does not
+hold an idle card for a window: it dispatches what is queued at once, and
+waits (at most `window_ms`) only for a request already on its way, one
+whose POST an HTTP handler has begun and not yet queued. Under load the
+requests that arrive while a batch runs form the next one.
 
 Stdlib HTTP (http.server + threading); no web framework.
 
@@ -17,8 +21,9 @@ body to the response written; its request id and `status`), and in it
 batch that took the request, with that `batch`; it ends on the worker
 thread, so a profiler's trace does not show it) and `serve.encode` (the
 WAV). On the worker thread: `serve.idle` (blocked on an empty queue),
-`serve.window` (the first request in hand, gathering until the window runs
-out or the batch is full) and `serve.batch` (one `inference_batch` call
+`serve.window` (the first request in hand, taking the compatible ones
+queued and waiting for any on its way; `waited`, whether it waited, and
+`gathered`, the requests it added) and `serve.batch` (one `inference_batch` call
 and the answers handed back; `batch`, the count in `Batcher.stats`, `B`
 and the `requests` ids), in which the Synthesizer's `inference.call` lies.
 
@@ -41,10 +46,11 @@ Run (on a CUDA card; --device cpu for a machine without one):
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import io
 import json
 import os
-import queue
 import threading
 import time
 import traceback
@@ -86,52 +92,88 @@ class Batcher:
     diffusion_steps, embedding_scale, speed, seed): only identical settings
     share one `inference_batch` call, and a request with other settings
     waits for the next group. Per-request reference styles are batched
-    (stacked to (B, D))."""
+    (stacked to (B, D)). `window_ms` bounds the worker's wait for a request
+    on its way (`on_its_way`); a Batcher driven without one dispatches what
+    is queued at once. `stats["window_waits"]` counts the batches that
+    waited."""
 
     def __init__(self, synthesizer, max_batch: int = 8, window_ms: float = 15.0):
         self.syn = synthesizer
         self.max_batch = int(max_batch)
         self.window_s = float(window_ms) / 1e3
-        self.q: "queue.Queue[Optional[_Request]]" = queue.Queue()
-        self.stats = {"requests": 0, "batches": 0, "batched_requests": 0}
+        self.stats = {"requests": 0, "batches": 0, "batched_requests": 0, "window_waits": 0}
+        self._cv = threading.Condition()  # guards the queue and the count on the way
+        self._queue: "collections.deque[_Request]" = collections.deque()
+        self._on_way = 0
+        self._local = threading.local()  # `counted`: this thread's request is on its way
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
+    @contextlib.contextmanager
+    def on_its_way(self):
+        """Count a request on its way for the `with` block (an HTTP handler's
+        POST /tts, from before its body is read). A `submit` inside the block
+        lowers the count at its put; a block left without one (a refused or
+        failed request) lowers it on leaving, and wakes the worker."""
+        with self._cv:
+            self._on_way += 1
+        self._local.counted = True
+        try:
+            yield
+        finally:
+            if self._local.counted:
+                self._local.counted = False
+                with self._cv:
+                    self._on_way -= 1
+                    self._cv.notify()
+
     def submit(self, req: _Request, timeout: float = 120.0) -> _Request:
         req.queued = spans.span("serve.queue")
-        self.q.put(req)
+        with self._cv:
+            self._queue.append(req)
+            if getattr(self._local, "counted", False):
+                self._local.counted = False
+                self._on_way -= 1
+            self._cv.notify()
         if not req.done.wait(timeout):
             req.error = req.error or "synthesis timed out"
         return req
 
     def close(self):
         self._stop.set()
-        self.q.put(None)  # wake the worker
+        with self._cv:
+            self._cv.notify()  # wake the worker
         self._thread.join(timeout=10)
 
     def _collect(self):
-        """Block for one request, then gather compatible ones for window_ms."""
-        with spans.span("serve.idle"):
-            first = self.q.get()
-        if first is None:
-            return []
-        with spans.span("serve.window"):
-            group, leftovers = [first], []
+        """Block for a first request; take every compatible one queued, up to
+        max_batch, and dispatch at once unless a request is on its way. Only
+        then wait for it, at most window_ms from the first, and take again.
+        Incompatible requests stay queued in their order."""
+        with spans.span("serve.idle"), self._cv:
+            self._cv.wait_for(lambda: self._queue or self._stop.is_set())
+            if not self._queue:
+                return []
+            first = self._queue.popleft()
+        with spans.span("serve.window") as sp:
+            group, waited = [first], False
             deadline = time.monotonic() + self.window_s
-            while len(group) < self.max_batch:
-                remaining = deadline - time.monotonic()
-                if remaining <= 0:
-                    break
-                try:
-                    nxt = self.q.get(timeout=remaining)
-                except queue.Empty:
-                    break
-                if nxt is None:
-                    break
-                (group if nxt.params == first.params else leftovers).append(nxt)
-            for r in leftovers:
-                self.q.put(r)
+            with self._cv:
+                while True:
+                    rest = []
+                    for r in self._queue:
+                        compatible = len(group) < self.max_batch and r.params == first.params
+                        (group if compatible else rest).append(r)
+                    self._queue = collections.deque(rest)
+                    remaining = deadline - time.monotonic()
+                    if (len(group) >= self.max_batch or not self._on_way or remaining <= 0
+                            or self._stop.is_set()):
+                        break
+                    waited = True
+                    self._cv.wait(remaining)
+            sp.set(waited=waited, gathered=len(group) - 1)
+        self.stats["window_waits"] += waited
         return group
 
     def _run(self):
@@ -273,10 +315,11 @@ class TTSServer:
             def _tts(self):
                 """(status, body, content type) of a POST /tts."""
                 try:
-                    with spans.span("serve.parse"):
-                        n = int(self.headers.get("Content-Length", 0))
-                        body = json.loads(self.rfile.read(n) or b"{}")
-                    return 200, server.handle_tts(body), "audio/wav"
+                    with server.batcher.on_its_way():  # until queued, or refused
+                        with spans.span("serve.parse"):
+                            n = int(self.headers.get("Content-Length", 0))
+                            body = json.loads(self.rfile.read(n) or b"{}")
+                        return 200, server.handle_tts(body), "audio/wav"
                 except ValueError as e:
                     code, err = 400, str(e)
                 except NotImplementedError as e:  # raw_text without a phonemizer
@@ -354,7 +397,9 @@ def parse_args(argv=None):
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8760)
     ap.add_argument("--max-batch", type=int, default=8)
-    ap.add_argument("--window-ms", type=float, default=15.0)
+    ap.add_argument("--window-ms", type=float, default=15.0,
+                    help="the longest the worker waits, from a batch's first request, for a "
+                         "request whose POST has begun; what is queued is dispatched at once")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--decoder-dtype", default=None, choices=["bfloat16"],
                     help="run the decoder in bf16 (its f32 islands kept)")

@@ -1,14 +1,17 @@
 """The port's serving layer (styletts2_tpu_torch.serve), mirroring
 tests/test_serve.py: the micro-batcher with a fake synthesizer (fusion,
-splitting of incompatible settings, per-request errors), the HTTP
-endpoints, and end-to-end requests through a tiny multispeaker port model
-on the CPU, with a voice table read from a WAV file and a checkpoint loaded
-strictly. It imports neither JAX nor the JAX package.
+splitting of incompatible settings, per-request errors), when it dispatches
+(at once from an idle worker, or after a wait for a request on its way), the
+HTTP endpoints, and end-to-end requests through a tiny multispeaker port
+model on the CPU, with a voice table read from a WAV file and a checkpoint
+loaded strictly. It imports neither JAX nor the JAX package.
 """
 
+import http.client
 import io
 import json
 import threading
+import time
 import urllib.request
 import wave
 from pathlib import Path
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from styletts2_tpu_torch.config import libritts_config
+from styletts2_tpu_torch.observability import spans
 from styletts2_tpu_torch.serve import (Batcher, TTSServer, _Request, load_synthesizer, main,
                                        make_server, parse_args, wav_bytes)
 
@@ -47,12 +51,66 @@ class FakeSynthesizer:
         return [self._wav(t) for t in texts]
 
 
+class Held:
+    """A synthesizer whose first `inference_batch` call sets `entered` and
+    waits for `release` before it runs: the batcher's worker is held in a
+    call, so what is submitted meanwhile queues behind it. Everything else
+    is the wrapped synthesizer's."""
+
+    def __init__(self, syn):
+        self.syn, self.entered, self.release = syn, threading.Event(), threading.Event()
+
+    def __getattr__(self, name):
+        return getattr(self.syn, name)
+
+    def inference_batch(self, texts, **kw):
+        if not self.entered.is_set():
+            self.entered.set()
+            assert self.release.wait(30)
+        return self.syn.inference_batch(texts, **kw)
+
+
+def _until(cond, timeout=10.0):
+    end = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < end, "timed out"
+        time.sleep(0.001)
+
+
 def _submit_all(batcher, reqs):
     threads = [threading.Thread(target=batcher.submit, args=(r,)) for r in reqs]
     for th in threads:
         th.start()
     for th in threads:
         th.join(30)
+    assert not any(th.is_alive() for th in threads)
+
+
+def _hold(batcher, req):
+    """Submits `req` and returns once the worker is held in its call (the
+    synthesizer is a `Held`); the thread that waits for its answer."""
+    th = threading.Thread(target=batcher.submit, args=(req,))
+    th.start()
+    assert batcher.syn.entered.wait(10)
+    return th
+
+
+def _queue_in_order(batcher, reqs):
+    """Submits `reqs` one after another, each once the one before is queued
+    (the worker held); the threads that wait for their answers."""
+    threads = []
+    for r in reqs:
+        n = len(batcher._queue)
+        threads.append(threading.Thread(target=batcher.submit, args=(r,)))
+        threads[-1].start()
+        _until(lambda: len(batcher._queue) == n + 1)
+    return threads
+
+
+def _windows(batcher):
+    """(waited, gathered) of each `serve.window` span of the worker."""
+    return [(s.attrs["waited"], s.attrs["gathered"]) for s in spans.snapshot()
+            if s.name == "serve.window" and s.thread == batcher._thread.native_id]
 
 
 def test_wav_bytes_roundtrip():
@@ -64,15 +122,93 @@ def test_wav_bytes_roundtrip():
 
 
 def test_batcher_fuses_concurrent_requests():
+    """Four concurrent requests, submitted while the worker is held in a
+    call, are answered by one batched call."""
     syn = FakeSynthesizer()
-    b = Batcher(syn, max_batch=8, window_ms=200)
+    b = Batcher(Held(syn), max_batch=8, window_ms=200)
     try:
+        held = _hold(b, _Request(text="hold", ref_s=None, params=_params()))
         reqs = [_Request(text=f"t{i}", ref_s=None, params=_params()) for i in range(4)]
-        _submit_all(b, reqs)
+        threads = [threading.Thread(target=b.submit, args=(r,)) for r in reqs]
+        for th in threads:
+            th.start()
+        _until(lambda: len(b._queue) == 4)
+        b.syn.release.set()
+        for th in threads + [held]:
+            th.join(30)
         assert all(r.wav is not None and r.error is None for r in reqs)
-        assert [k for k, _ in syn.calls] == ["batch"]  # one batched call (window >> skew)
-        assert sorted(syn.calls[0][1]) == ["t0", "t1", "t2", "t3"]
-        assert b.stats == {"requests": 4, "batches": 1, "batched_requests": 4}
+        assert [k for k, _ in syn.calls] == ["batch", "batch"]  # the held call, then one batch
+        assert sorted(syn.calls[1][1]) == ["t0", "t1", "t2", "t3"]
+        assert b.stats == {"requests": 5, "batches": 2, "batched_requests": 4, "window_waits": 0}
+    finally:
+        b.close()
+
+
+@pytest.mark.parametrize("entry", ["batcher", "http"])
+def test_a_lone_request_at_an_idle_batcher_is_answered_at_once(entry):
+    """A lone request at an idle worker is dispatched at once, not after the
+    window: directly (no request can be on its way) and through HTTP (the
+    handler's count falls at the put). Its `serve.window` neither waited nor
+    gathered, and `window_waits` stays 0."""
+    syn = FakeSynthesizer()
+    server = TTSServer(syn, max_batch=8, window_ms=500 if entry == "batcher" else 2000)
+    b = server.batcher
+    try:
+        spans.clear()
+        if entry == "batcher":
+            t0 = time.monotonic()
+            r = b.submit(_Request(text="alone", ref_s=None, params=_params()))
+            took, limit = time.monotonic() - t0, 0.05
+            assert r.error is None and r.wav is not None
+        else:
+            port = server.start_background()
+            t0 = time.monotonic()
+            code, _, _ = _post(port, {"text": "alone"})
+            took, limit = time.monotonic() - t0, 1.0
+            assert code == 200
+        assert took < limit, took
+        assert syn.calls == [("batch", ["alone"])]
+        assert b.stats["window_waits"] == 0 and _windows(b) == [(False, 0)]
+    finally:
+        server.close()
+
+
+def test_requests_queued_during_a_call_form_the_next_calls_up_to_max_batch():
+    """Five requests submitted while the worker is held in a call are taken
+    in their order by the next calls at once, three (max_batch) then two."""
+    syn = FakeSynthesizer()
+    b = Batcher(Held(syn), max_batch=3, window_ms=500)
+    try:
+        spans.clear()
+        held = _hold(b, _Request(text="hold", ref_s=None, params=_params()))
+        reqs = [_Request(text=f"t{i}", ref_s=None, params=_params()) for i in range(5)]
+        threads = _queue_in_order(b, reqs)
+        b.syn.release.set()
+        for th in threads + [held]:
+            th.join(30)
+        assert all(r.error is None for r in reqs)
+        assert syn.calls == [("batch", ["hold"]), ("batch", ["t0", "t1", "t2"]),
+                             ("batch", ["t3", "t4"])]
+        assert _windows(b) == [(False, 0), (False, 2), (False, 1)]
+        assert b.stats["window_waits"] == 0
+    finally:
+        b.close()
+
+
+def test_incompatible_leftovers_keep_their_order_and_form_the_next_batch():
+    syn = FakeSynthesizer()
+    b = Batcher(Held(syn), max_batch=8, window_ms=500)
+    try:
+        held = _hold(b, _Request(text="hold", ref_s=None, params=_params()))
+        steps = {"a": 5, "b": 10, "c": 5, "d": 10, "e": 7, "f": 10}
+        reqs = [_Request(text=t, ref_s=None, params=_params(steps=n)) for t, n in steps.items()]
+        threads = _queue_in_order(b, reqs)
+        b.syn.release.set()
+        for th in threads + [held]:
+            th.join(30)
+        assert all(r.error is None for r in reqs)
+        assert syn.calls == [("batch", ["hold"]), ("batch", ["a", "c"]),
+                             ("batch", ["b", "d", "f"]), ("batch", ["e"])]
     finally:
         b.close()
 
@@ -115,6 +251,115 @@ def _post(port, obj, path="/tts"):
         return e.code, e.headers.get("Content-Type"), e.read()
 
 
+def _begin_post(port, body):
+    """A POST /tts whose headers are sent and its body not: its handler has
+    begun, so the request is on its way. `_end_post` sends the body."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    conn.putrequest("POST", "/tts")
+    conn.putheader("Content-Type", "application/json")
+    conn.putheader("Content-Length", str(len(json.dumps(body).encode())))
+    conn.endheaders()
+    return conn
+
+
+def _end_post(conn, body):
+    conn.send(json.dumps(body).encode())
+    resp = conn.getresponse()
+    resp.read()
+    conn.close()
+    return resp.status
+
+
+@pytest.mark.parametrize("case", ["arrives", "window_ends", "refused"])
+def test_a_request_on_its_way_holds_the_dispatch(case):
+    """Through TTSServer: while a POST's body has not come, the request is on
+    its way, and the worker holds a lone queued request for it until it
+    arrives (one call of both), for at most window_ms (answered alone), or
+    until it is refused (400), which releases the wait at once. Each is one
+    `window_waits`, and its `serve.window` waited."""
+    window = 0.3 if case == "window_ends" else 5.0
+    syn = FakeSynthesizer()
+    server = TTSServer(syn, max_batch=8, window_ms=window * 1e3)
+    b = server.batcher
+    port = server.start_background()
+    second = {"text": "second."}
+    if case == "refused":
+        second["voice"] = "nobody"
+    try:
+        spans.clear()
+        conn = _begin_post(port, second)
+        _until(lambda: b._on_way == 1)
+        got = {}
+
+        def first():
+            got["first"] = _post(port, {"text": "first."})[0]
+            got["at"] = time.monotonic()
+
+        th = threading.Thread(target=first)
+        t0 = time.monotonic()
+        th.start()
+        if case == "window_ends":
+            th.join(10)
+            assert got["first"] == 200 and window <= got["at"] - t0 < window + 2.0
+            assert syn.calls == [("batch", ["first."])]
+        else:
+            time.sleep(0.15)
+            assert syn.calls == []  # held for the request on its way
+        t1 = time.monotonic()
+        status = _end_post(conn, second)
+        th.join(10)
+        assert not th.is_alive() and got["first"] == 200
+        assert b.stats["window_waits"] == 1
+        if case == "arrives":
+            assert status == 200 and syn.calls == [("batch", ["first.", "second."])]
+            assert _windows(b) == [(True, 1)]
+        elif case == "window_ends":
+            assert status == 200 and syn.calls == [("batch", ["first."]), ("batch", ["second."])]
+            assert _windows(b) == [(True, 0), (False, 0)]
+        else:
+            assert status == 400 and syn.calls == [("batch", ["first."])]
+            assert got["at"] - t1 < 1.0  # not the 5 s window
+            assert _windows(b) == [(True, 0)]
+    finally:
+        server.close()
+
+
+def test_the_count_on_the_way_survives_concurrent_posts():
+    """48 POSTs from 8 concurrent clients, a third refused, with the
+    interpreter switching threads every microsecond: every answer is right,
+    each accepted request is in one batch, and the count on the way returns
+    to 0 (a lost update would leave the worker waiting out the window for
+    nothing)."""
+    import sys
+
+    syn = FakeSynthesizer()
+    server = TTSServer(syn, max_batch=8, window_ms=50)
+    port = server.start_background()
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        codes = {}
+
+        def go(client):
+            for i in range(client, 48, 8):
+                body = {"text": f"t{i}"} if i % 3 else {"text": f"t{i}", "voice": "nobody"}
+                codes[i] = _post(port, body)[0]
+
+        threads = [threading.Thread(target=go, args=(c,)) for c in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(60)
+        assert not any(th.is_alive() for th in threads)
+        assert codes == {i: 200 if i % 3 else 400 for i in range(48)}
+        assert sorted(t for _, texts in syn.calls for t in texts) == \
+            sorted(f"t{i}" for i in range(48) if i % 3)
+        assert server.batcher.stats["requests"] == 32 and server.batcher._on_way == 0
+    finally:
+        sys.setswitchinterval(interval)
+        server.close()
+
+
 def _get(port, path):
     with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as resp:
         return json.loads(resp.read())
@@ -155,8 +400,10 @@ def _tiny_libritts():
 
 def test_http_end_to_end_tiny_model(tmp_path):
     """Two concurrent requests with a voice from a 22.05 kHz WAV through a
-    tiny multispeaker port model on the CPU come back as valid 24 kHz WAVs of
-    sum(durations) * 600 - 50 samples and share one batch."""
+    tiny multispeaker port model on the CPU, queued while the worker is held
+    in a first request's call, come back as valid 24 kHz WAVs of
+    sum(durations) * 600 - 50 samples and share one batch (B = 2, a
+    reference style per row)."""
     from styletts2_tpu_torch.inference import Synthesizer
 
     syn = Synthesizer(_tiny_libritts(), seed=0, device="cpu")
@@ -169,7 +416,7 @@ def test_http_end_to_end_tiny_model(tmp_path):
         f.writeframes(pcm.tobytes())
     voices = TTSServer.load_voices(syn, str(tmp_path))
     assert list(voices) == ["anna"] and voices["anna"].shape == (1, 64)
-    server = TTSServer(syn, voices, max_batch=4, window_ms=3000)
+    server = TTSServer(Held(syn), voices, max_batch=4, window_ms=3000)
     port = server.start_background()
     try:
         results = {}
@@ -178,20 +425,27 @@ def test_http_end_to_end_tiny_model(tmp_path):
             results[name] = _post(port, {"text": text, "voice": "anna", "diffusion_steps": 3,
                                          "speed": 4.0})
 
-        threads = [threading.Thread(target=go, args=("a", "ðɪs ɪz ɐ tˈɛst.")),
-                   threading.Thread(target=go, args=("b", "sˈɛkənd lˈaɪn."))]
-        for th in threads:
+        threads = [threading.Thread(target=go, args=("hold", "hˈoʊld."))]
+        threads[0].start()  # the worker is held in its call while a and b queue
+        assert server.syn.entered.wait(60)
+        threads += [threading.Thread(target=go, args=("a", "ðɪs ɪz ɐ tˈɛst.")),
+                    threading.Thread(target=go, args=("b", "sˈɛkənd lˈaɪn."))]
+        for th in threads[1:]:
             th.start()
+        _until(lambda: len(server.batcher._queue) == 2, 60)
+        server.syn.release.set()
         for th in threads:
             th.join(300)
-        for name in ("a", "b"):
+        assert not any(th.is_alive() for th in threads)
+        for name in ("hold", "a", "b"):
             code, ctype, body = results[name]
             assert code == 200 and ctype == "audio/wav", body[:200]
             with wave.open(io.BytesIO(body)) as f:
                 assert f.getframerate() == 24000
                 frames = f.getnframes()
             assert frames > 600 and (frames + 50) % 600 == 0
-        assert _get(port, "/healthz")["stats"]["batched_requests"] == 2
+        stats = _get(port, "/healthz")["stats"]
+        assert (stats["batches"], stats["batched_requests"]) == (2, 2)
     finally:
         server.close()
 
