@@ -18,6 +18,7 @@ the batch is judged:
 from __future__ import annotations
 
 import random
+import sys
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -59,9 +60,10 @@ def judge(ref: Reference, calls: Sequence[dict], answers: Dict[int, np.ndarray],
           wav16: bool, sampler: dict) -> Dict[str, float]:
     """`calls`: each {"texts", "feats" ((B, D) or None), "ids", "speed",
     "seed"}; `answers`: each id's answer (int16 samples, or float32).
-    Returns frames_mismatch and wav_gap over the calls' answers."""
-    mismatch, worst = 0, 0.0
-    for call in calls:
+    Returns frames_mismatch and wav_gap over the calls' answers, and logs
+    where the widest gap lies."""
+    mismatch, worst, where = 0, 0.0, ""
+    for n, call in enumerate(calls):
         served = [answers[i] for i in call["ids"]]
         rows = synth.synthesize(
             ref, call["texts"], call["feats"], alpha=sampler["alpha"], beta=sampler["beta"],
@@ -69,12 +71,17 @@ def judge(ref: Reference, calls: Sequence[dict], answers: Dict[int, np.ndarray],
             speed=call["speed"], seed=call["seed"], sigma_data=sampler["sigma_data"],
             served_frames=[(len(a) + trim) // synth.SAMPLES_PER_FRAME for a in served],
             wav16=wav16)
-        for a, row in zip(served, rows):
+        for i, (a, row) in enumerate(zip(served, rows)):
             g = gap(a, row.candidates)
             if g is None:
                 mismatch += 1
-            else:
-                worst = max(worst, g)
+            elif g >= worst:
+                d = min((np.abs(a.astype(np.float64) - c) for c in row.candidates
+                         if len(c) == len(a)), key=np.max)
+                worst, where = g, (f"call {n} of {len(calls)} (B {len(served)}), row {i}, sample "
+                                   f"{int(d.argmax())} of {len(a)}")
+    if where:
+        print(f"widest wav_gap {worst!r}: {where}", file=sys.stderr, flush=True)
     return {"frames_mismatch": mismatch, "wav_gap": worst}
 
 

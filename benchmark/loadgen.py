@@ -10,7 +10,9 @@ process shares), then sends: an open loop each request at T0 + due from a
 pool of threads, a closed loop `clients` callers that each send the next
 request when the last returns, until T0 + seconds. It waits for the
 answers (at most `wait_s` after the window), prints one JSON line of
-results (per request: id, sent, done, status, audio bytes) and keeps the
+results (per request: id, sent, done, status, audio bytes, and for a
+request not answered with 200 its `error`: the exception, or the status
+and the start of the body) and keeps the
 WAV bodies; "dump PATH ID ..." writes those requests' 16-bit samples to
 PATH (.npy files in one .npz, by id) and it exits.
 """
@@ -28,6 +30,7 @@ import wave
 import zipfile
 
 POOL = 256  # open loop: the most requests in flight
+ERROR_BYTES = 200  # of a refused request's body, kept as its error
 
 
 def _post(port: int, body: bytes, timeout: float):
@@ -56,14 +59,18 @@ def main(plan_path: str) -> None:
 
     def send(rid, body):
         sent = time.monotonic()
+        error = None
         try:
             status, data = _post(port, body.encode(), timeout=seconds + wait_s)
-        except OSError as e:  # refused, reset or timed out: a failed request
-            status, data = 0, str(e).encode()
+        except Exception as e:  # refused, reset, timed out or malformed: a failed request
+            status, data = 0, b""
+            error = f"{type(e).__name__}: {e}"
         done = time.monotonic()
+        if error is None and status != 200:
+            error = f"status {status}: {data[:ERROR_BYTES].decode('utf-8', 'replace')}"
         with lock:
             results[rid] = {"id": rid, "sent": sent, "done": done, "status": status,
-                            "bytes": len(data)}
+                            "bytes": len(data), "error": error}
             if status == 200:
                 bodies[rid] = data
 

@@ -30,6 +30,16 @@ from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 Spec = Tuple[Tuple[int, ...], str, float]  # shape, init kind, its scale
+# The gain on the F0 projection's drawn scale. Random weights give an F0
+# curve of a few Hz about 0 that now and then crosses the sine source's
+# 10 Hz voicing threshold. Where a row has a voiced sample its source holds
+# the sines, whose phase sums F0 over every sample before it, and the
+# iSTFTNet decoder reads the source's STFT angle: moving F0 by one part in a
+# million then moves the row's waveform by 15-30% of its peak (tiny widths,
+# CPU), against under 1e-6 for an unvoiced row, so no comparison with a
+# reference can hold a voiced row. At this gain the curve stays an order
+# under the threshold and every row is unvoiced.
+F0_GAIN = 0.25
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +161,9 @@ def param_specs(cfg: dict) -> Dict[str, Spec]:
         s.adain_resblk(f"predictor.{br}.1", H, H // 2, sd, upsample=True)
         s.adain_resblk(f"predictor.{br}.2", H // 2, H // 2, sd)
         s.conv(f"predictor.{br}_proj", H // 2, 1, 1)
+    for n in ("weight", "bias"):
+        shape, kind, scale = s.out[f"predictor.F0_proj.{n}"]
+        s.add(f"predictor.F0_proj.{n}", shape, kind, F0_GAIN * scale)
     # decoder
     dec = mp["decoder"]
     hifigan = dec["type"] == "hifigan"

@@ -1,25 +1,28 @@
-"""The knee of an open-loop cell: the cell at several fixed rates, one run
-each (a fresh seed, the cell's own set-up), reporting the latency
-percentiles, the audio answered per second, and whether the queue grew
-(the later half's median latency over the earlier half's).
+"""The knee of an open-loop cell, and how steady each rate below it reads:
+after one set-up, `--repeats` windows at each of several fixed rates (the
+synthesis entry's `sweep`), each window's latency percentiles, audio
+answered per second, batch mean and whether the queue grew (the later
+half's median latency over the earlier half's); then, a rate, the spread
+of each over its windows as `spreads.py` takes it.
 
-    python3 -m benchmark.sweep --workload CELL --seconds S --rates R [R ...]
+    python3 -m benchmark.sweep --workload CELL --seconds S --rates R [R ...] [--repeats N]
 
 The highest rate whose p95 stays within a few batches' time and whose
-queue does not grow is the knee; a cell's file offers 0.8 of it.
+queue does not grow is the knee. A cell's file offers the highest rate
+whose windows' spreads stay under half of each bound in BENCHMARK.json.
 """
 
 from __future__ import annotations
 
 import argparse
-import copy
 import json
+import statistics
 import sys
-import time
 
-import numpy as np
+from benchmark import run  # noqa: F401  (fixes the kernel caches on import)
+from benchmark import spec, spreads
 
-from benchmark import run, spec
+SPREAD_OF = ("latency_p50_ms", "latency_p95_ms", "audio_s_per_s", "batch_mean")
 
 
 def main(argv=None) -> int:
@@ -27,27 +30,28 @@ def main(argv=None) -> int:
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--rates", type=float, nargs="+", required=True)
+    ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--seed", type=int, default=7_000_000_000)
     args = ap.parse_args(argv)
     cell = spec.load(args.workload)
-    for i, rate in enumerate(args.rates):
-        c = copy.deepcopy(cell)
-        c.workload["load"]["rate_per_s"] = rate
-        c.workload["check"]["batches"] = 1
-        runs = {}
-        res = run.run_cell(c, args.seed + i, args.seconds, False, t_start=time.perf_counter(),
-                           keep=runs)
-        reqs = sorted(runs["run"].requests, key=lambda q: q["start"])
-        lat = [(q["done"] - q["start"]) * 1e3 for q in reqs if q["ok"]]
-        h = len(lat) // 2
-        grow = float(np.median(lat[h:]) / np.median(lat[:h])) if h else float("nan")
-        stats = runs["run"].counters.get("batcher", {})
-        bm = ((stats["after"]["requests"] - stats["before"]["requests"])
-              / max(1, stats["after"]["batches"] - stats["before"]["batches"])) if stats else None
-        print(json.dumps({"rate_per_s": rate, "correct": res["correct"],
-                          "failed": res["failed"], "attempted": res["attempted"],
-                          **{k: v["value"] for k, v in res["metrics"].items()},
-                          "later_over_earlier_median": grow, "batch_mean": bm}), flush=True)
+    if cell.harness != spec.DEFAULT_HARNESS or cell.workload["load"]["kind"] != "open":
+        print(f"{args.workload}: the sweep takes an open-loop cell of the synthesis entry",
+              file=sys.stderr)
+        return 2
+    sweep = spec.entry_module(cell.home, cell.harness).sweep
+    by_rate = {}
+    for w in sweep(cell, args.seed, args.seconds, args.rates, args.repeats):
+        print(json.dumps(w), flush=True)
+        by_rate.setdefault(w["rate_per_s"], []).append(w)
+    for rate, ws in by_rate.items():
+        if len(ws) < 3:
+            continue
+        out = {"rate_per_s": rate, "windows": len(ws)}
+        for m in SPREAD_OF:
+            v = [w[m] for w in ws]
+            out[m] = {"median": statistics.median(v), "spread": spreads.spread(v),
+                      "trimmed": spreads.spread(spreads.trimmed(v))}
+        print(json.dumps({"summary": out}), flush=True)
     return 0
 
 

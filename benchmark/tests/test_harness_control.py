@@ -20,7 +20,8 @@ def cuda_root(tmp_path_factory):
 @pytest.mark.parametrize("name", ["tiny.poisson", "tiny.single"])
 def test_the_tf32_control_is_not_correct(cuda_root, name):
     cell = spec.load(name, cuda_root)
+    entry = spec.entry(cell.home, cell.harness)
     for seed in (11, 12, 13):
         assert run.run_cell(cell, seed, 3.0, False, t_start=0.0)["correct"]
-        res = run.run_cell(cell, seed, 3.0, False, t_start=0.0, control=True)
+        res = entry(cell, seed, 3.0, False, "cuda", 0.0, control=True)
         assert not res["correct"], res["checked"]

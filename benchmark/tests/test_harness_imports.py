@@ -40,6 +40,7 @@ def test_reference_imports_nothing_of_the_port():
 def test_a_run_loads_no_jax():
     code = ("import sys, benchmark.run, benchmark.control, benchmark.check, "
             "styletts2_tpu_torch.serve, styletts2_tpu_torch.inference; "
+            "from benchmark import spec; spec.entry(spec.ROOT / 'benchmark', 'synthesis'); "
             "print(sorted({m.split('.')[0] for m in sys.modules} & %r))" % FORBIDDEN)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)

@@ -85,3 +85,46 @@ def test_near_ties_are_rounded_both_ways():
     assert [list(c) for c in synth._candidates(dur, 1.0, False)][0] == [3, 7, 3, 5]
     # after the speed a flip that rounds alike is one candidate
     assert len(synth._candidates(np.array([24.4998, 9.0]), 8.0, False)) == 1
+
+
+def _f0_nudged_gap(cfg, sd):
+    """The reference against itself with its F0 curve moved by one part in a
+    million: the widest gap over the batch's rows, and the F0 curve's peak."""
+    ref = Reference(cfg, sd)
+    texts = _texts(3, 3)
+    toks = [synth.encode(t) for t in texts]
+    lengths = torch.tensor([len(t) for t in toks])
+    tokens = torch.zeros((3, 64), dtype=torch.int64)
+    for i, t in enumerate(toks):
+        tokens[i, : len(t)] = torch.from_numpy(t)
+    D = 2 * ref.sdim
+    gen = torch.Generator().manual_seed(0)
+    with torch.inference_mode():
+        t_en, d, s, rs, dur = ref.phase_a(tokens, lengths, torch.zeros((3, 1, D)),
+                                          torch.zeros((3, D)), 0.3, 0.7, 5, 1.0, gen, 0.2)
+        after = gen.get_state()
+        pd = torch.clamp(torch.round(torch.clamp(torch.round(dur), min=1) / 4.0), min=1).long()
+        asr, f0, n = ref.prosody(t_en, d, s, pd, 100 * -(-int(pd.sum(1).max()) // 100))
+        out = []
+        for nudge in (1.0, 1.0 + 1e-6):
+            gen.set_state(after)
+            out.append(ref.decode(asr, f0 * nudge, n, rs, gen).numpy())
+    gap = max(np.abs(a - b).max() / np.abs(a).max() for a, b in zip(*out))
+    return gap, float(f0.max())
+
+
+def test_the_drawn_f0_keeps_every_row_unvoiced_where_a_comparison_holds():
+    """A row with a sample over the sine source's 10 Hz threshold moves by
+    a large share of its peak when F0 moves by 1e-6; the drawn weights keep
+    F0 an order under it, where the same nudge moves nothing."""
+    from benchmark.reference import model
+
+    torch.set_num_threads(4)
+    cfg = tiny_config(False)
+    sd = make(param_specs(cfg), 7, "cpu")
+    gap, peak = _f0_nudged_gap(cfg, sd)
+    assert peak < 0.1 * 10.0 and gap < 1e-5
+    voiced = {k: v * (20.0 / model.F0_GAIN) if k.startswith("predictor.F0_proj.") else v
+              for k, v in sd.items()}
+    gap, peak = _f0_nudged_gap(cfg, voiced)
+    assert peak > 10.0 and gap > 1e-2

@@ -51,12 +51,18 @@ def _altered_answer(monkeypatch):
 
 
 def _half_batch(monkeypatch):
-    """Synthesizes the first half of each batch and answers the rest with it."""
+    """Synthesizes the first half of each batch and answers the rest with it.
+    Each call first holds the worker a while, so that the other clients'
+    requests queue and batches of more than one form (a lone request has no
+    half to leave out)."""
+    import time
+
     from styletts2_tpu_torch.inference import Synthesizer
 
     batch = Synthesizer.inference_batch
 
     def half(self, texts, ref_s=None, **kw):
+        time.sleep(0.2)
         n = (len(texts) + 1) // 2
         ref = None if ref_s is None else np.asarray(ref_s)[:n]
         wavs = batch(self, texts[:n], ref_s=ref, **kw)
@@ -84,3 +90,16 @@ def test_a_broken_timed_path_is_not_correct(root, monkeypatch, fault):
     fault(monkeypatch)
     res = _run(root, "tiny-ms.voices")
     assert not res["correct"], res["checked"]
+
+
+def test_the_sweep_runs_windows_at_each_rate_after_one_set_up(root):
+    """`sweep.py`'s windows: each rate's windows after one set-up, every
+    request answered, no key captured inside a window, and a summary of
+    spreads a rate."""
+    cell = spec.load("tiny.poisson", root)
+    ws = list(spec.entry_module(cell.home, cell.harness).sweep(cell, SEED, 1.5, [1.0, 3.0], 2,
+                                                              device="cpu"))
+    assert [(w["rate_per_s"], w["window"]) for w in ws] == [(1.0, 0), (1.0, 1), (3.0, 0),
+                                                            (3.0, 1)]
+    assert all(w["failed"] == 0 and w["captured"] == 0 and w["batch_mean"] >= 1 for w in ws)
+    assert [w["attempted"] for w in ws] == [2, 2, 4, 4]

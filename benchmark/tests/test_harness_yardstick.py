@@ -3,11 +3,12 @@ second, the busy time and breakdown of a hand-made trace, FLOPs and K1's
 bytes against the reference."""
 
 import math
+from types import SimpleNamespace
 
 import pytest
 import torch
 
-from benchmark import run, yardstick
+from benchmark import harness, spec, yardstick
 from benchmark.reference.model import Reference, param_specs
 from benchmark.tests.tiny import tiny_config
 from benchmark.weights import make
@@ -56,16 +57,16 @@ def test_device_busy_counts_overlaps_once_and_no_spans():
 
 
 def test_breakdown_and_idle_of_a_hand_made_trace():
-    r = run.Run(None, 0, 1.0, tiny_config(False))
-    r.trace = _trace()
-    bd = run.breakdown(r)
+    after = {"ph": "X", "cat": "kernel", "name": "k_after", "ts": 300.0, "dur": 10.0}
+    r = SimpleNamespace(trace=_trace() + [after])  # work after the last call: no gap, no op
+    bd = harness.breakdown(r.trace)
     assert bd["device_ops"] == [["k_a", 30e-6], ["k_b", 30e-6],
                                 ["adain_snake_kernel<float>", 30e-6], ["Memcpy DtoH", 20e-6]]
     # idle: 0-10 and 240-250 inside a call outside any finer span, 50-60 in
     # "decode", 80-210 between the calls
     assert dict(bd["idle_gaps"]) == pytest.approx(
         {"host: between calls": 130e-6, "bench.call": 20e-6, "decode": 10e-6})
-    idle = run.spec.reader(run.spec.ROOT / "benchmark", "inference.device_idle")(r)
+    idle = spec.reader(spec.ROOT / "benchmark", "inference.device_idle")(r)
     assert idle == pytest.approx(100.0 * (1 - (40.0 + 20.0 + 30.0) / 150.0))
 
 
@@ -74,13 +75,13 @@ def test_end_to_end_counts_failures_and_audio_inside_the_window():
             for i in range(18)]
     reqs += [{"start": 3.0, "done": None, "ok": False, "audio_s": 0.0},
              {"start": 19.0, "done": 20.5, "ok": True, "audio_s": 5.0}]  # answered after the window
-    e2e = run.end_to_end(reqs, end=20.0, seconds=20.0)
+    e2e = harness.end_to_end(reqs, end=20.0, seconds=20.0)
     assert e2e["audio_s_per_s"] == pytest.approx(18 * 2.0 / 20.0)
     lat = sorted([100.0 * (i + 1) for i in range(18)] + [1500.0])
     assert e2e["latency_p50_ms"] == pytest.approx(lat[9])  # rank 10 of 20
     assert e2e["latency_p95_ms"] == pytest.approx(lat[18])  # rank 19: the late answer
     reqs[0]["ok"] = False
-    assert run.end_to_end(reqs, 20.0, 20.0)["latency_p95_ms"] == math.inf
+    assert harness.end_to_end(reqs, 20.0, 20.0)["latency_p95_ms"] == math.inf
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,9 @@ WORKLOADS = {
     "tiny.poisson": ("tiny", {"entry": "http", "load": {"kind": "open", "rate_per_s": 3.0},
                               "server": {"max_batch": 3, "window_ms": 15}, "tokens": TOKENS,
                               "check": {"batches": 3}}),
+    "tiny.lowrate": ("tiny", {"entry": "http", "load": {"kind": "open", "rate_per_s": 0.5},
+                              "server": {"max_batch": 3, "window_ms": 15}, "tokens": TOKENS,
+                              "check": {"batches": 3}}),
     "tiny.single": ("tiny", {"entry": "library", "load": {"kind": "closed", "clients": 1},
                              "requests_per_s": 10, "tokens": TOKENS, "check": {"batches": 3}}),
     "tiny-ms.voices": ("tiny-ms", {"entry": "http", "load": {"kind": "closed", "clients": 4},
@@ -44,11 +47,13 @@ WORKLOADS = {
 
 def make_tree(where: Path) -> Path:
     """A checkout-like tree: BENCHMARK.json with the tiny cells, their
-    configuration and traffic files and the harness's metric readers."""
+    configuration and traffic files and the harness's entries and metric
+    readers."""
     home = where / "bench"
     (home / "configs").mkdir(parents=True)
     (home / "workloads").mkdir()
-    shutil.copytree(HOME / "metrics", home / "metrics")
+    for d in ("entries", "metrics"):
+        shutil.copytree(HOME / d, home / d, ignore=shutil.ignore_patterns("__pycache__"))
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
     bench["paths"] = ["bench"]
     bench["configs"] = []
